@@ -1,0 +1,596 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on an H100.
+
+    python3 chip_smoke.py [--out DIR]
+
+Needs one CUDA card, nvcc and the repository beside this file; exits
+non-zero, with no result line, otherwise. It builds the kernels of
+zero_tig_torch/csrc from the checkout, then:
+
+  1. prints the card's name and power limit and the build seconds;
+  2. holds every kernel against its plain PyTorch twin on the card, at the
+     shapes the main path gives it (K1 for every Denoise_1, Enhancer,
+     Denoise_2 and RAFT-update layer in bf16 and f32; K2 on one update
+     iteration at 45x80 against the twins on the CPU; K3 on a 360x640x3
+     uint8 image with a constant channel, exactly);
+  3. drives the main path: predict_chunk(emit="u8") over 8 frames of
+     1920x1080, of_scale=3, 12 RAFT iterations, fast mode, new sequences at
+     frames 0 and 4, on seeded random weights; checks the outputs are finite
+     and that each kernel's launch count is the one the design implies; and
+     times ms/frame (median over chunks, after a warm-up chunk); then
+     traces one more chunk with torch.profiler and prints the device time
+     per frame of each kernel by exact name and the device's idle share;
+  4. runs the whole path at 96x128 (3 iterations) on the card and through
+     the twins on the CPU, in both precisions, and compares;
+  5. times each kernel at its main-path shapes beside its bound, its twin
+     and the library calls that compute the same function (cuDNN for K1;
+     torch.mul / torch.lerp for the GRU kernel). Work at full resolution is
+     timed with CUDA events over back-to-back calls; work at the 45x80 RAFT
+     grid and the GRU and K3 kernels, too small to outrun the host's
+     launches, inside a CUDA graph.
+
+The last line is {"ok": true, "device": {...}}; the line before it holds
+the per-kernel numbers. With --out DIR, the details also go to
+DIR/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from zero_tig_torch.core import precision
+from zero_tig_torch.kernels import build
+from zero_tig_torch.models import build_model, init_random_state_dict
+from zero_tig_torch.models.raft.update import update_core
+from zero_tig_torch.ops import gru
+from zero_tig_torch.ops.equalize import equalize_u8, equalize_u8_reference
+from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference
+from zero_tig_torch.pipeline.steps import init_carry, predict_chunk
+
+H, W, OF_SCALE, ITERS, CHUNK = 1080, 1920, 3, 12, 8
+HR, WR = 45, 80  # RAFT grid: (1080/3, 1920/3) padded to /8, over 8
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+SEED = 0
+
+# (name, weights key, input channel parts, grid, act, residual, anchor parts,
+#  f32 output, launches per frame) -- every K1 launch of one main-path frame
+FULL, RAFT = (H, W), (HR, WR)
+K1_LAYERS = [
+    ("d1.conv1", ("denoise_1", "conv1"), [3], FULL, "leaky", False, [], False, 1),
+    ("d1.conv2", ("denoise_1", "conv2"), [48], FULL, "leaky", False, [], False, 1),
+    ("d1.conv3+anchor", ("denoise_1", "conv3"), [48], FULL, "none", False, [3], False, 1),
+    ("enh.in_conv", ("enhance", "in"), [6, 3], FULL, "relu", False, [], False, 1),
+    ("enh.block+res", ("enhance", "block"), [64], FULL, "relu", True, [], False, 3),
+    ("enh.out_conv", ("enhance", "out"), [64], FULL, "sigmoid_clip", False, [], False, 1),
+    ("d2.conv1", ("denoise_2", "conv1"), [6, 3, 3], FULL, "leaky", False, [], False, 1),
+    ("d2.conv2", ("denoise_2", "conv2"), [48], FULL, "leaky", False, [], False, 1),
+    ("d2.conv3+anchor", ("denoise_2", "conv3"), [48], FULL, "none", False, [3, 3], False, 1),
+    ("raft.convc1", ("raft", "convc1"), [324], RAFT, "relu", False, [], False, ITERS),
+    ("raft.convc2", ("raft", "convc2"), [256], RAFT, "relu", False, [], False, ITERS),
+    ("raft.conv", ("raft", "conv"), [192, 64], RAFT, "relu", False, [], False, ITERS),
+    ("raft.gru.zr1", ("raft", "zr1"), [128, 128, 126, 2], RAFT, "sigmoid", False, [], True, ITERS),
+    ("raft.gru.q1", ("raft", "q1"), [128, 128, 126, 2], RAFT, "tanh", False, [], True, ITERS),
+    ("raft.gru.zr2", ("raft", "zr2"), [128, 128, 126, 2], RAFT, "sigmoid", False, [], True, ITERS),
+    ("raft.gru.q2", ("raft", "q2"), [128, 128, 126, 2], RAFT, "tanh", False, [], True, ITERS),
+    ("raft.fh1", ("raft", "fh1"), [128], RAFT, "relu", False, [], False, ITERS),
+    ("raft.fh2", ("raft", "fh2"), [256], RAFT, "none", False, [], True, ITERS),
+    ("raft.mask0", ("raft", "mask0"), [128], RAFT, "relu", False, [], False, 1),
+    ("raft.mask2", ("raft", "mask2"), [256], RAFT, "none", False, [], False, 1),
+]
+GRU_PER_FRAME = 4 * ITERS
+EQ_PER_FRAME = 1
+K1_PER_FRAME = sum(layer[-1] for layer in K1_LAYERS)
+
+REPLACES = {
+    "fused_conv": "zero_tig_tpu/ops/pack_conv.py:214 (conv3x3_packed), :394 (conv3x3_packed_multi), "
+    ":546 (residual1x1_packed), :491 (residual1x1_packed_multi); "
+    "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel convs)",
+    "gru": "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel GRU gates)",
+    "equalize_u8": "zero_tig_tpu/ops/pallas_equalize.py:112 (equalize_uint8_pallas)",
+}
+# the kernels of csrc/*.cu by exact name, and the wrapper that launches each
+OWN_KERNELS = {
+    "zt::fused_conv_kernel": "fused_conv",
+    "zt::gru_reset_kernel": "gru",
+    "zt::gru_update_kernel": "gru",
+    "zt::eq_hist_kernel": "equalize_u8",
+    "zt::eq_apply_kernel": "equalize_u8",
+}
+SOURCES = {
+    "fused_conv": "zero_tig_torch/csrc/fused_conv.cu",
+    "gru": "zero_tig_torch/csrc/gru.cu",
+    "equalize_u8": "zero_tig_torch/csrc/equalize.cu",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
+    """Mean ms of fn on the card over n calls (CUDA events)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, reps: int = 20, n: int = 10) -> float:
+    """Device ms of one fn call, for work too small to outrun the host's
+    launches: reps calls captured in one CUDA graph, replayed n times and
+    timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def k1_inputs(layer, dtype, gen):
+    name, _, parts, (h, w), act, residual, anchor, out_f32, _ = layer
+    xs = [torch.randn(1, h, w, c, generator=gen, device="cuda").to(dtype) for c in parts]
+    if name.startswith("raft.gru.q") or name.startswith("raft.gru.zr"):
+        xs[-1] = xs[-1] * 4  # the flow channels are a few pixels
+    anc = [torch.rand(1, h, w, c, generator=gen, device="cuda").to(dtype) for c in anchor]
+    kwargs = dict(act=act, residual=xs[0] if residual else None, anchor=anc,
+                  out_dtype=torch.float32 if out_f32 else None)
+    return xs, kwargs
+
+
+def k1_bound_ms(layer, cw) -> tuple[float, float, str]:
+    """(bound ms, FLOP, what bounds it) of one K1 launch: the larger of its
+    FLOP at the bf16 tensor-core peak and its bytes (each input, weight and
+    output once) at the HBM rate. A residual is the layer's own input xs[0]
+    (the Enhancer block adds its input), so it adds no bytes."""
+    _, _, parts, (h, w), _, _, anchor, out_f32, _ = layer
+    kh, kw, cin, cout = cw.w.shape
+    esz = cw.w.element_size()
+    flops = 2.0 * h * w * cin * cout * kh * kw
+    nbytes = h * w * (cin + sum(anchor)) * esz
+    nbytes += cw.w.numel() * esz + h * w * cout * (4 if out_f32 else esz)
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), flops, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def layer_weights(model, key):
+    owner, name = key
+    if owner == "raft":
+        return model.raft.update_block.kw[name]
+    return getattr(model, owner).kw[name]
+
+
+def phase2_kernels(fast, highest, gen, report):
+    """Every kernel against its twin at main-path shapes."""
+    k1 = []
+    for layer in K1_LAYERS:
+        name = layer[0]
+        for mode, model in (("bf16", fast), ("f32", highest)):
+            cw = layer_weights(model, layer[1])
+            xs, kwargs = k1_inputs(layer, cw.w.dtype, gen)
+            got = fused_conv(xs, cw, **kwargs).float()
+            ref = fused_conv_reference(xs, cw, **kwargs).float()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            # bf16: one output ulp (2^-8 relative) plus sums in another order;
+            # f32: sums of up to 2304 terms in another order
+            atol, rtol = (1e-2, 1e-2) if mode == "bf16" else (1e-4, 1e-4)
+            bad = float(((got - ref).abs() - (atol + rtol * ref.abs())).max())
+            ok = bool(torch.isfinite(got).all()) and bad <= 0 and scale > 0
+            print(f"K1 {name:18s} {mode:4s} max_abs_err={err:.3e} max|ref|={scale:.3g} "
+                  f"tol=atol {atol:g} + rtol {rtol:g}*|ref| "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K1 {name} {mode} disagrees with its twin")
+            k1.append({"layer": name, "mode": mode, "max_abs_err": err})
+    report["k1_checks"] = k1
+
+    # ragged edges and a batch of 2: every tap shape and epilogue of K1
+    odd = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for kh, kw in ((1, 1), (3, 3), (1, 5), (5, 1)):
+            xs = [torch.randn(2, 37, 53, c, generator=gen, device="cuda").to(dt) for c in (5, 7, 3, 1)]
+            cw = ConvWeights(
+                (0.2 * torch.randn(kh, kw, 16, 16, generator=gen, device="cuda")).to(dt),
+                torch.rand(16, generator=gen, device="cuda") + 0.5,
+                torch.randn(16, generator=gen, device="cuda") * 0.1,
+            )
+            anc = [torch.rand(2, 37, 53, c, generator=gen, device="cuda").to(dt) for c in (10, 6)]
+            res = torch.randn(2, 37, 53, 16, generator=gen, device="cuda").to(dt)
+            for kwargs in (dict(act="tanh", residual=res), dict(anchor=anc),
+                           dict(act="sigmoid", out_dtype=torch.float32)):
+                out = fused_conv(xs, cw, **kwargs)
+                got, ref = out.float(), fused_conv_reference(xs, cw, **kwargs).float()
+                # bf16 output: one rounding apart (2^-8 relative); f32: sums
+                # in another order
+                atol, rtol = (2.0**-6, 2.0**-8) if out.dtype == torch.bfloat16 else (1e-5, 1e-5)
+                err = float((got - ref).abs().max())
+                if not err <= atol + rtol * float(ref.abs().max()):
+                    fail(f"K1 on (2,37,53) {dt} {kh}x{kw} {sorted(kwargs)} err {err}")
+                odd = max(odd, err)
+    print(f"K1 ragged (2,37,53) batch 2, 4 inputs, 1x1/3x3/1x5/5x1, residual/anchor/f32-out: "
+          f"max_abs_err={odd:.3e} tol=bf16 2^-6 + 2^-8*max|ref|, f32 1e-5 + 1e-5*max|ref| ok", flush=True)
+
+    # K2: one update iteration at 45x80, kernels on the card vs twins on the CPU
+    k2 = {}
+    for mode, model, tol in (("bf16", fast, 3e-2), ("f32", highest, 1e-3)):
+        ub = model.raft.update_block
+        dt = ub.dtype
+        x = {k: torch.randn(1, HR, WR, c, generator=gen, device="cuda")
+             for k, c in (("net", 128), ("inp", 128), ("corr", 324), ("flow", 2))}
+        x["net"], x["inp"] = torch.tanh(x["net"]).to(dt), torch.relu(x["inp"]).to(dt)
+        x["flow"] = 3 * x["flow"]
+        flo = ub.flow_features(x["flow"])
+        net, delta = update_core(ub.kw, x["net"], x["inp"], x["corr"], flo, x["flow"])
+        kw_cpu = {k: type(v)(*(t.cpu() for t in v)) for k, v in ub.kw.items()}
+        rnet, rdelta = update_core(kw_cpu, x["net"].cpu(), x["inp"].cpu(), x["corr"].cpu(),
+                                   flo.cpu(), x["flow"].cpu())
+        e_net = float((net.cpu().float() - rnet.float()).abs().max())
+        e_delta = float((delta.cpu() - rdelta).abs().max())
+        ok = e_net <= tol and e_delta <= tol and bool(torch.isfinite(delta).all())
+        print(f"K2 update_core {mode:4s} (1,{HR},{WR}) net max_abs_err={e_net:.3e} "
+              f"delta max_abs_err={e_delta:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"K2 update_core {mode} disagrees with its CPU twin")
+        k2[mode] = {"net": e_net, "delta": e_delta}
+    report["k2_checks"] = k2
+
+    # the GRU kernel alone against its twin on the card: f32 outputs to f32
+    # rounding (the kernel may fuse a multiply-add), bf16 outputs to one bf16
+    # ulp of a value in [-1, 1] (2^-7)
+    gru_err = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        zr = torch.rand(1, HR, WR, 256, generator=gen, device="cuda")
+        q = torch.rand(1, HR, WR, 128, generator=gen, device="cuda") * 2 - 1
+        net = (torch.rand(1, HR, WR, 128, generator=gen, device="cuda") * 2 - 1).to(dt)
+        pairs = [(gru.gru_reset(zr, net, dt), gru.gru_reset_reference(zr, net, dt))]
+        outs = (torch.float32, torch.bfloat16) if dt == torch.bfloat16 else (torch.float32,)
+        pairs += list(zip(gru.gru_update(zr, q, net, outs), gru.gru_update_reference(zr, q, net, outs)))
+        for a, b in pairs:
+            err = float((a.float() - b.float()).abs().max())
+            tol = 2.0**-7 if a.dtype == torch.bfloat16 else 1e-6
+            ok = err <= tol
+            print(f"GRU kernel {a.dtype} out (net {dt}) max_abs_err={err:.3e} tol={tol:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("GRU kernel disagrees with its twin")
+            gru_err = max(gru_err, err)
+
+    # K3: exact, with a constant channel
+    img = torch.randint(0, 256, (1, H // OF_SCALE, W // OF_SCALE, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    img[..., 1] = 91
+    got, ref = equalize_u8(img), equalize_u8_reference(img)
+    eq_err = int((got.int() - ref.int()).abs().max())
+    ok = eq_err == 0 and torch.equal(got[..., 1], img[..., 1])
+    print(f"K3 equalize_u8 (1,{H // OF_SCALE},{W // OF_SCALE},3) max_abs_err={eq_err} tol=0 (exact) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("K3 equalize_u8 is not exact")
+    img2 = torch.randint(0, 256, (2, 37, 53, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    img2[1, ..., 0] = 5
+    if not torch.equal(equalize_u8(img2), equalize_u8_reference(img2)):
+        fail("K3 equalize_u8 is not exact on (2,37,53,3)")
+    print("K3 equalize_u8 (2,37,53,3) with a constant channel: exact ok", flush=True)
+    report["k3_max_abs_err"] = eq_err
+    report["gru_max_abs_err"] = gru_err
+    k1_bf16 = max(c["max_abs_err"] for c in k1 if c["mode"] == "bf16")
+    return {"fused_conv": k1_bf16, "gru": gru_err, "equalize_u8": float(eq_err)}
+
+
+def phase3_main_path(fast, gen, report, smi):
+    frames = torch.rand(CHUNK, 1, H, W, 3, generator=gen, device="cuda")
+    frames = (frames * 255).to(torch.uint8)
+    flags = torch.zeros(CHUNK, dtype=torch.bool)
+    flags[0] = flags[4] = True
+    carry = init_carry(fast, (1, H, W, 3))
+    kw = dict(of_scale=OF_SCALE, raft_iters=ITERS, emit="u8")
+
+    (h2, h3), carry = predict_chunk(fast, frames, carry, flags, **kw)  # warm-up
+    torch.cuda.synchronize()
+    build.reset_counts()
+    (h2, h3), carry = predict_chunk(fast, frames, carry, flags, **kw)
+    torch.cuda.synchronize()
+    counts = dict(build.COUNTS)
+    expect = {"fused_conv": K1_PER_FRAME * CHUNK, "gru": GRU_PER_FRAME * CHUNK,
+              "equalize_u8": EQ_PER_FRAME * CHUNK}
+    print(f"main path launches over {CHUNK} frames: {counts} (expected {expect})", flush=True)
+    if counts != expect:
+        fail("launch counts differ from the design")
+    if h2.shape != (CHUNK, 1, H, W, 3) or h3.dtype != torch.uint8:
+        fail(f"unexpected output {tuple(h2.shape)} {h3.dtype}")
+    for k, v in carry.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"carry {k} is not finite")
+    if int(h3.max()) == 0:
+        fail("H3 is all zero")
+
+    per_frame = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        predict_chunk(fast, frames, carry, flags, **kw)
+        torch.cuda.synchronize()
+        per_frame.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+    ms = statistics.median(per_frame)
+    print(f"main path 1080p of_scale={OF_SCALE} iters={ITERS} fast chunk={CHUNK}: "
+          f"{ms:.3f} ms/frame median of {[round(v, 3) for v in per_frame]} on {smi}", flush=True)
+    report["main_path"] = {"ms_per_frame": ms, "per_chunk_ms_per_frame": per_frame,
+                           "launches": counts, "frames": CHUNK,
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    trace_main_path(lambda: predict_chunk(fast, frames, carry, flags, **kw), report)
+    return counts
+
+
+def kernel_id(name: str) -> str:
+    """A device kernel's qualified name without its return type, template and
+    parameter lists: 'void zt::gru_reset_kernel<float, float>(...)' ->
+    'zt::gru_reset_kernel'."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)", "anonymous")
+    return re.split(r"[<(]", name, maxsplit=1)[0].strip()
+
+
+def trace_main_path(run, report) -> None:
+    """torch.profiler over one chunk of the main path: device ms and kernels
+    per frame for each of the port's kernels and for the heaviest other
+    kernels, all by exact name, and the device's idle share (1 - union of
+    kernel intervals / traced window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    if not events:
+        fail("the profiler recorded no device kernels")
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        ms_n = by_name.setdefault(kernel_id(e.name), [0.0, 0.0])
+        ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3 / CHUNK
+        ms_n[1] += 1 / CHUNK
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    missing = sorted(set(OWN_KERNELS) - set(by_name))
+    if missing:
+        fail(f"the trace holds no device kernel named {missing}")
+    own = [(k, v) for k, v in rows if k in OWN_KERNELS]
+    other = [(k, v) for k, v in rows if k not in OWN_KERNELS]
+    print(f"trace of {CHUNK} frames: device busy {busy / 1e3 / CHUNK:.3f} of a {window / 1e3 / CHUNK:.3f} "
+          f"ms/frame window, idle share {1 - busy / window:.4f}, {len(events) / CHUNK:.1f} device "
+          f"kernels/frame", flush=True)
+    for k, (ms, n) in own + other[:12]:
+        label = f"{k} ({OWN_KERNELS[k]})" if k in OWN_KERNELS else k
+        print(f"trace {ms:9.4f} ms/frame {n:7.2f} kernels/frame  {label}", flush=True)
+    rest = other[12:]
+    print(f"trace {sum(v[0] for _, v in rest):9.4f} ms/frame {sum(v[1] for _, v in rest):7.2f} "
+          f"kernels/frame  {len(rest)} other kernel names", flush=True)
+    report["trace"] = {
+        "busy_ms_per_frame": busy / 1e3 / CHUNK, "window_ms_per_frame": window / 1e3 / CHUNK,
+        "idle_share": 1 - busy / window, "kernels_per_frame": len(events) / CHUNK,
+        "ms_and_kernels_per_frame_by_name": dict(rows),
+    }
+
+
+def phase4_card_vs_cpu(sd, gen, report):
+    h, w = 96, 128
+    frames = torch.rand(4, 1, h, w, 3, generator=torch.Generator().manual_seed(SEED))
+    flags = torch.tensor([True, False, True, False])
+    kw = dict(of_scale=2, raft_iters=3)
+    out = {}
+    # f32: every sum in f32 on both sides, in another order; fast: bf16
+    # activations, where one rounding apart can move a value by 2^-8
+    for mode, tol in (("highest", 1e-3), ("fast", 5e-2)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            m = build_model(sd, device=dev, precision=mode)
+            (H2, H3, s3), _ = predict_chunk(m, frames, init_carry(m, (1, h, w, 3)), flags, **kw)
+            res[dev] = [t.float().cpu() for t in (H2, H3, s3)]
+        err = max(float((a - b).abs().max()) for a, b in zip(res["cuda"], res["cpu"]))
+        finite = all(bool(torch.isfinite(t).all()) for t in res["cuda"])
+        ok = finite and err <= tol
+        print(f"whole path {h}x{w} {mode:7s} card vs CPU max_abs_err={err:.3e} tol={tol:g} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"card and CPU disagree on the whole path ({mode})")
+        out[mode] = err
+    report["card_vs_cpu"] = out
+
+
+def k1_bound_by(rows) -> str:
+    """What bounds most of one frame's K1 bound time."""
+    ops = sum(r["bound_ms"] * r["per_frame"] for r in rows if r["bound_by"] == "operations")
+    total = sum(r["bound_ms"] * r["per_frame"] for r in rows)
+    return "operations" if ops >= total / 2 else "bytes"
+
+
+def phase5_timings(fast, gen, report):
+    rows = []
+    for layer in K1_LAYERS:
+        name = layer[0]
+        cw = layer_weights(fast, layer[1])
+        xs, kwargs = k1_inputs(layer, cw.w.dtype, gen)
+        # at 45x80 the twin's and the library's calls are shorter than their
+        # host launches: time them inside a CUDA graph
+        timer = graph_ms if layer[3] == RAFT else cuda_ms
+        ms = timer(lambda: fused_conv(xs, cw, **kwargs))
+        plain = timer(lambda: fused_conv_reference(xs, cw, **kwargs))
+        # library: one cuDNN conv on the same channels_last bf16 tensors
+        x_cl = torch.cat(xs, -1).permute(0, 3, 1, 2)
+        w_cl = cw.w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bias = cw.shift.to(cw.w.dtype)
+        pad = ((cw.w.shape[0] - 1) // 2, (cw.w.shape[1] - 1) // 2)
+        lib = timer(lambda: F.conv2d(x_cl, w_cl, bias, padding=pad))
+        bound, flops, by = k1_bound_ms(layer, cw)
+        rows.append({"layer": name, "shape": [1, *layer[3], *cw.w.shape[2:]],
+                     "taps": cw.w.shape[0] * cw.w.shape[1], "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
+                     "per_frame": layer[-1]})
+        print(f"time K1 {name:18s} ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={bound:.4f} ({by}) x{layer[-1]}/frame", flush=True)
+    report["k1_layers"] = rows
+
+    # K2: a whole update iteration, and the GRU kernel's share
+    ub = fast.raft.update_block
+    dt = ub.dtype
+    net = torch.tanh(torch.randn(1, HR, WR, 128, generator=gen, device="cuda")).to(dt)
+    inp = torch.relu(torch.randn(1, HR, WR, 128, generator=gen, device="cuda")).to(dt)
+    corr = torch.randn(1, HR, WR, 324, generator=gen, device="cuda")
+    flow = 3 * torch.randn(1, HR, WR, 2, generator=gen, device="cuda")
+    flo = ub.flow_features(flow)
+    iter_ms = cuda_ms(lambda: update_core(ub.kw, net, inp, corr, flo, flow))
+    zr = torch.rand(1, HR, WR, 256, generator=gen, device="cuda")
+    q = torch.rand(1, HR, WR, 128, generator=gen, device="cuda")
+    net_f = net.float()
+    hd = net.shape[-1]
+    z, r = zr[..., :hd], zr[..., hd:]
+    rh = torch.empty(net.shape, dtype=dt, device="cuda")
+
+    # the four GRU launches of one main-path iteration (models/raft/update.py)
+    def gru_four():
+        gru.gru_reset(zr, net, dt)
+        gru.gru_update(zr, q, net, (torch.float32, dt))
+        gru.gru_reset(zr, net_f, dt)
+        gru.gru_update(zr, q, net_f, (dt,))
+
+    def gru_four_plain():
+        gru.gru_reset_reference(zr, net, dt)
+        gru.gru_update_reference(zr, q, net, (torch.float32, dt))
+        gru.gru_reset_reference(zr, net_f, dt)
+        gru.gru_update_reference(zr, q, net_f, (dt,))
+
+    # the same four functions as library calls: torch.mul with the output
+    # dtype's out=, torch.lerp on f32 net, and the casts they need
+    def gru_four_library():
+        torch.mul(r, net, out=rh)
+        torch.lerp(net.float(), q, z).to(dt)
+        torch.mul(r, net_f, out=rh)
+        torch.lerp(net_f, q, z).to(dt)
+
+    gru_ms = graph_ms(gru_four) / 4
+    gru_plain = graph_ms(gru_four_plain) / 4
+    gru_lib = graph_ms(gru_four_library) / 4
+    n = HR * WR * 128
+    # bytes of the four launches of one iteration, each tensor once
+    gru_bytes = (n * (4 + 2 + 2) + n * (4 + 4 + 2 + 4 + 2) + n * (4 + 4 + 2) + n * (4 + 4 + 4 + 2))
+    gru_bound = gru_bytes / PEAK_BYTES * 1e3 / 4
+    print(f"time K2 update_core iteration ms={iter_ms:.4f} (13 launches); GRU kernel ms={gru_ms:.4f} "
+          f"plain_ms={gru_plain:.4f} library_ms={gru_lib:.4f} bound_ms={gru_bound:.5f} (bytes), "
+          f"CUDA-graph device time per launch", flush=True)
+
+    img = torch.randint(0, 256, (1, H // OF_SCALE, W // OF_SCALE, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    eq_ms = graph_ms(lambda: equalize_u8(img))
+    eq_plain = graph_ms(lambda: equalize_u8_reference(img))
+    eq_bound = 2 * img.numel() / PEAK_BYTES * 1e3
+    print(f"time K3 equalize_u8 ms={eq_ms:.4f} plain_ms={eq_plain:.4f} bound_ms={eq_bound:.6f} (bytes), "
+          f"CUDA-graph device time", flush=True)
+    report["k2"] = {"iteration_ms": iter_ms, "gru_ms": gru_ms, "gru_plain_ms": gru_plain,
+                    "gru_library_ms": gru_lib, "gru_bound_ms": gru_bound, "launches_per_iteration": 13}
+    report["k3"] = {"ms": eq_ms, "plain_ms": eq_plain, "bound_ms": eq_bound}
+
+    per_frame = lambda key: sum(r[key] * r["per_frame"] for r in rows)  # noqa: E731
+    return {
+        "fused_conv": dict(ms=per_frame("ms"), plain_ms=per_frame("plain_ms"),
+                           bound_ms=per_frame("bound_ms"), library_ms=per_frame("library_ms"),
+                           bound_by=k1_bound_by(rows)),
+        "gru": dict(ms=gru_ms * GRU_PER_FRAME, plain_ms=gru_plain * GRU_PER_FRAME,
+                    bound_ms=gru_bound * GRU_PER_FRAME, library_ms=gru_lib * GRU_PER_FRAME,
+                    bound_by="bytes"),
+        "equalize_u8": dict(ms=eq_ms, plain_ms=eq_plain, bound_ms=eq_bound, library_ms=None,
+                            bound_by="bytes"),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description="Build the port's kernels and drive its main path on one card.")
+    ap.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json (details)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sd = init_random_state_dict(SEED)
+    fast = build_model(sd, device="cuda", precision="fast")
+    highest = build_model(sd, device="cuda", precision="highest")
+    report: dict = {"device": smi, "build_s": build.BUILD_SECONDS}
+
+    with precision.numerics("highest"):  # f32 twins hold f32 sums, not TF32
+        errs = phase2_kernels(fast, highest, gen, report)
+    # the main path and the timings run with PyTorch's default switches, as
+    # a user's fast-mode model does
+    counts = phase3_main_path(fast, gen, report, smi)
+    phase4_card_vs_cpu(sd, gen, report)
+    times = phase5_timings(fast, gen, report)
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": counts[name], "max_abs_err": errs[name], **times[name]}
+        for name in ("fused_conv", "gru", "equalize_u8")
+    ]
+    report["kernels"] = kernels
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("PYTHONUNBUFFERED", "1")
+    sys.exit(main())
