@@ -12,7 +12,8 @@ zero_tig_torch/csrc from the checkout, then:
      shapes the main path gives it (K1 for every Denoise_1, Enhancer,
      Denoise_2 and RAFT-update layer in bf16 and f32; K2 on one update
      iteration at 45x80 against the twins on the CPU; K3 on a 360x640x3
-     uint8 image with a constant channel, exactly);
+     uint8 image with a constant channel, exactly; conv3x3_bf16 at 1080p,
+     64->64 and 48->48, with bf16 and f32 outputs);
   3. drives the main path: predict_chunk(emit="u8") over 8 frames of
      1920x1080, of_scale=3, 12 RAFT iterations, fast mode, new sequences at
      frames 0 and 4, on seeded random weights; checks the outputs are finite
@@ -21,13 +22,24 @@ zero_tig_torch/csrc from the checkout, then:
      traces one more chunk with torch.profiler and prints the device time
      per frame of each kernel by exact name and the device's idle share;
   4. runs the whole path at 96x128 (3 iterations) on the card and through
-     the twins on the CPU, in both precisions, and compares;
+     the twins on the CPU, in both precisions, and compares; the same for 2
+     training steps;
   5. times each kernel at its main-path shapes beside its bound, its twin
-     and the library calls that compute the same function (cuDNN for K1;
-     torch.mul / torch.lerp for the GRU kernel). Work at full resolution is
-     timed with CUDA events over back-to-back calls; work at the 45x80 RAFT
-     grid and the GRU and K3 kernels, too small to outrun the host's
-     launches, inside a CUDA graph.
+     and the library calls that compute the same function (cuDNN for K1
+     and conv3x3_bf16; torch.mul / torch.lerp for the GRU kernel). Work at
+     full resolution is timed with CUDA events over back-to-back calls;
+     work at the 45x80 RAFT grid and the GRU and K3 kernels, too small to
+     outrun the host's launches, inside a CUDA graph;
+  6. drives conv3x3_bf16's own path (it is on no model path): one 1080p
+     call at 64->64 and one at 48->48, counted;
+  7. drives the training path: train_chunk at 1920x1080, of_scale=3, 12
+     RAFT iterations, from seeded random weights with the reference's
+     Enhancer init, in each precision 4 frames with batch-statistics
+     BatchNorm and 4 more on running statistics, a new sequence at the
+     first frame of each; checks the losses are finite, the parameters
+     moved and each kernel's launches per frame (the flow phase: K1, K2,
+     K3); prints ms/frame and peak device memory per mode, and traces one
+     more 4-frame chunk (batch statistics) per mode as phase 3 does.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel numbers. With --out DIR, the details also go to
@@ -50,13 +62,16 @@ import torch
 import torch.nn.functional as F
 
 from zero_tig_torch.core import precision
+from zero_tig_torch.core.config import Config
 from zero_tig_torch.kernels import build
 from zero_tig_torch.models import build_model, init_random_state_dict
+from zero_tig_torch.models.network import reinit_enhancer
 from zero_tig_torch.models.raft.update import update_core
 from zero_tig_torch.ops import gru
+from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
 from zero_tig_torch.ops.equalize import equalize_u8, equalize_u8_reference
 from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference
-from zero_tig_torch.pipeline.steps import init_carry, predict_chunk
+from zero_tig_torch.pipeline.steps import init_carry, init_train_state, predict_chunk, train_chunk
 
 H, W, OF_SCALE, ITERS, CHUNK = 1080, 1920, 3, 12, 8
 HR, WR = 45, 80  # RAFT grid: (1080/3, 1920/3) padded to /8, over 8
@@ -92,6 +107,12 @@ K1_LAYERS = [
 GRU_PER_FRAME = 4 * ITERS
 EQ_PER_FRAME = 1
 K1_PER_FRAME = sum(layer[-1] for layer in K1_LAYERS)
+# a training frame runs K1 only inside RAFT (its conv stacks are library
+# convolutions under autograd): the update core and the mask head
+K1_PER_TRAIN_FRAME = sum(layer[-1] for layer in K1_LAYERS if layer[0].startswith("raft."))
+TRAIN_FRAMES = 4
+# conv3x3_bf16's own path: (Cin, Cout) of its 1080p calls
+CONV3X3_CALLS = [(64, 64), (48, 48)]
 
 REPLACES = {
     "fused_conv": "zero_tig_tpu/ops/pack_conv.py:214 (conv3x3_packed), :394 (conv3x3_packed_multi), "
@@ -99,6 +120,7 @@ REPLACES = {
     "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel convs)",
     "gru": "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel GRU gates)",
     "equalize_u8": "zero_tig_tpu/ops/pallas_equalize.py:112 (equalize_uint8_pallas)",
+    "conv3x3_bf16": "zero_tig_tpu/ops/pallas_conv.py:125 (conv3x3_bf16)",
 }
 # the kernels of csrc/*.cu by exact name, and the wrapper that launches each
 OWN_KERNELS = {
@@ -112,6 +134,7 @@ SOURCES = {
     "fused_conv": "zero_tig_torch/csrc/fused_conv.cu",
     "gru": "zero_tig_torch/csrc/gru.cu",
     "equalize_u8": "zero_tig_torch/csrc/equalize.cu",
+    "conv3x3_bf16": "zero_tig_torch/csrc/fused_conv.cu",
 }
 
 
@@ -309,8 +332,43 @@ def phase2_kernels(fast, highest, gen, report):
     print("K3 equalize_u8 (2,37,53,3) with a constant channel: exact ok", flush=True)
     report["k3_max_abs_err"] = eq_err
     report["gru_max_abs_err"] = gru_err
+
+    # conv3x3_bf16 (K1 with no epilogue) at 1080p: the same bf16 products,
+    # f32 sums in another order: f32 outputs within 1e-5 + 1e-5 |ref|, bf16
+    # outputs within one bf16 ulp (2^-7 |ref|) plus that 1e-5, by which a
+    # sum near 0 may change sign
+    c3 = {}
+    for cin, cout in CONV3X3_CALLS:
+        x, w, b = conv3x3_inputs(cin, cout, gen)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = conv3x3_bf16(x, w, b, out_dtype=out_dtype)
+            ref = conv3x3_bf16_reference(x, w, b, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            rel = 2.0**-7 if out_dtype == torch.bfloat16 else 1e-5
+            ok = bool((diff <= 1e-5 + rel * ref.float().abs()).all()) and bool(torch.isfinite(got).all())
+            tol = f"1e-5 + {rel:g} |ref|"
+            err = float(diff.max())
+            name = f"{cin}->{cout} {str(out_dtype).removeprefix('torch.')}"
+            print(f"conv3x3_bf16 (1,{H},{W}) {name} max_abs_err={err:.3e} max|ref|={float(ref.float().abs().max()):.3g} "
+                  f"tol={tol} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"conv3x3_bf16 {name} disagrees with its twin")
+            c3[name] = err
+    report["conv3x3_bf16_checks"] = c3
+
     k1_bf16 = max(c["max_abs_err"] for c in k1 if c["mode"] == "bf16")
-    return {"fused_conv": k1_bf16, "gru": gru_err, "equalize_u8": float(eq_err)}
+    c3_bf16 = max(v for k, v in c3.items() if k.endswith("bfloat16"))
+    return {"fused_conv": k1_bf16, "gru": gru_err, "equalize_u8": float(eq_err), "conv3x3_bf16": c3_bf16}
+
+
+def conv3x3_inputs(cin, cout, gen):
+    """A 1080p bf16 activation in [0, 1) (a relu output), bf16 weights and
+    an f32 bias at the scale of a trained layer."""
+    x = torch.rand(1, H, W, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (0.1 * torch.randn(3, 3, cin, cout, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = 0.01 * torch.randn(cout, generator=gen, device="cuda")
+    return x, w, b
 
 
 def phase3_main_path(fast, gen, report, smi):
@@ -328,7 +386,7 @@ def phase3_main_path(fast, gen, report, smi):
     torch.cuda.synchronize()
     counts = dict(build.COUNTS)
     expect = {"fused_conv": K1_PER_FRAME * CHUNK, "gru": GRU_PER_FRAME * CHUNK,
-              "equalize_u8": EQ_PER_FRAME * CHUNK}
+              "equalize_u8": EQ_PER_FRAME * CHUNK, "conv3x3_bf16": 0}
     print(f"main path launches over {CHUNK} frames: {counts} (expected {expect})", flush=True)
     if counts != expect:
         fail("launch counts differ from the design")
@@ -352,7 +410,7 @@ def phase3_main_path(fast, gen, report, smi):
     report["main_path"] = {"ms_per_frame": ms, "per_chunk_ms_per_frame": per_frame,
                            "launches": counts, "frames": CHUNK,
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    trace_main_path(lambda: predict_chunk(fast, frames, carry, flags, **kw), report)
+    report["trace"] = trace_path(lambda: predict_chunk(fast, frames, carry, flags, **kw), CHUNK, "main path")
     return counts
 
 
@@ -364,11 +422,11 @@ def kernel_id(name: str) -> str:
     return re.split(r"[<(]", name, maxsplit=1)[0].strip()
 
 
-def trace_main_path(run, report) -> None:
-    """torch.profiler over one chunk of the main path: device ms and kernels
-    per frame for each of the port's kernels and for the heaviest other
-    kernels, all by exact name, and the device's idle share (1 - union of
-    kernel intervals / traced window)."""
+def trace_path(run, frames: int, label: str) -> dict:
+    """torch.profiler over ``run`` (``frames`` frames of a path): device ms
+    and kernels per frame for each of the port's kernels and for the
+    heaviest other kernels, all by exact name, and the device's idle share
+    (1 - union of kernel intervals / traced window)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -381,8 +439,8 @@ def trace_main_path(run, report) -> None:
     by_name: dict[str, list[float]] = {}
     for e in events:
         ms_n = by_name.setdefault(kernel_id(e.name), [0.0, 0.0])
-        ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3 / CHUNK
-        ms_n[1] += 1 / CHUNK
+        ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3 / frames
+        ms_n[1] += 1 / frames
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -399,18 +457,18 @@ def trace_main_path(run, report) -> None:
         fail(f"the trace holds no device kernel named {missing}")
     own = [(k, v) for k, v in rows if k in OWN_KERNELS]
     other = [(k, v) for k, v in rows if k not in OWN_KERNELS]
-    print(f"trace of {CHUNK} frames: device busy {busy / 1e3 / CHUNK:.3f} of a {window / 1e3 / CHUNK:.3f} "
-          f"ms/frame window, idle share {1 - busy / window:.4f}, {len(events) / CHUNK:.1f} device "
+    print(f"{label} trace of {frames} frames: device busy {busy / 1e3 / frames:.3f} of a {window / 1e3 / frames:.3f} "
+          f"ms/frame window, idle share {1 - busy / window:.4f}, {len(events) / frames:.1f} device "
           f"kernels/frame", flush=True)
     for k, (ms, n) in own + other[:12]:
-        label = f"{k} ({OWN_KERNELS[k]})" if k in OWN_KERNELS else k
-        print(f"trace {ms:9.4f} ms/frame {n:7.2f} kernels/frame  {label}", flush=True)
+        name = f"{k} ({OWN_KERNELS[k]})" if k in OWN_KERNELS else k
+        print(f"{label} trace {ms:9.4f} ms/frame {n:7.2f} kernels/frame  {name}", flush=True)
     rest = other[12:]
-    print(f"trace {sum(v[0] for _, v in rest):9.4f} ms/frame {sum(v[1] for _, v in rest):7.2f} "
+    print(f"{label} trace {sum(v[0] for _, v in rest):9.4f} ms/frame {sum(v[1] for _, v in rest):7.2f} "
           f"kernels/frame  {len(rest)} other kernel names", flush=True)
-    report["trace"] = {
-        "busy_ms_per_frame": busy / 1e3 / CHUNK, "window_ms_per_frame": window / 1e3 / CHUNK,
-        "idle_share": 1 - busy / window, "kernels_per_frame": len(events) / CHUNK,
+    return {
+        "busy_ms_per_frame": busy / 1e3 / frames, "window_ms_per_frame": window / 1e3 / frames,
+        "idle_share": 1 - busy / window, "kernels_per_frame": len(events) / frames,
         "ms_and_kernels_per_frame_by_name": dict(rows),
     }
 
@@ -437,6 +495,28 @@ def phase4_card_vs_cpu(sd, gen, report):
         if not ok:
             fail(f"card and CPU disagree on the whole path ({mode})")
         out[mode] = err
+
+    # 2 training steps (reset, then a carried frame): the losses and the
+    # parameter update. Adam normalises each step, so a gradient component
+    # at rounding level moves by +-lr whichever sign rounding gives it: the
+    # update is held by its cosine, not element by element
+    for mode, loss_tol, cos_tol in (("highest", 1e-4, 0.999), ("fast", 2e-2, 0.98)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state = init_train_state(Config(precision=mode, **kw), sd, (1, h, w, 3), device=dev)
+            before = [p.detach().clone() for p in state.optimizer.params]
+            state, losses = train_chunk(state, frames[:2], flags[:2], **kw)
+            delta = torch.cat([(p.detach() - b).flatten() for p, b in zip(state.optimizer.params, before)])
+            res[dev] = (losses.cpu(), delta.cpu())
+        (lc, dc), (lh, dh) = res["cuda"], res["cpu"]
+        loss_err = float(((lc - lh).abs() / lh.abs()).max())
+        cos = float(torch.dot(dc, dh) / (dc.norm() * dh.norm()))
+        ok = bool(torch.isfinite(lc).all()) and loss_err <= loss_tol and cos >= cos_tol
+        print(f"2 training steps {h}x{w} {mode:7s} card vs CPU: loss rel err={loss_err:.3e} (tol {loss_tol:g}), "
+              f"update cosine={cos:.6f} (tol >= {cos_tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"card and CPU disagree on 2 training steps ({mode})")
+        out[f"train_{mode}"] = {"loss_rel_err": loss_err, "update_cosine": cos}
     report["card_vs_cpu"] = out
 
 
@@ -532,6 +612,29 @@ def phase5_timings(fast, gen, report):
                     "gru_library_ms": gru_lib, "gru_bound_ms": gru_bound, "launches_per_iteration": 13}
     report["k3"] = {"ms": eq_ms, "plain_ms": eq_plain, "bound_ms": eq_bound}
 
+    # conv3x3_bf16 at the calls of its own path (phase 6), bf16 output; the
+    # library call is one cuDNN conv on the same channels_last bf16 tensors
+    c3 = []
+    for cin, cout in CONV3X3_CALLS:
+        x, w, b = conv3x3_inputs(cin, cout, gen)
+        ms = cuda_ms(lambda: conv3x3_bf16(x, w, b))
+        plain = cuda_ms(lambda: conv3x3_bf16_reference(x, w, b))
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b16 = b.to(torch.bfloat16)
+        lib = cuda_ms(lambda: F.conv2d(x_cl, w_cl, b16, padding=1))
+        flops = 2.0 * H * W * cin * cout * 9
+        nbytes = H * W * (cin + cout) * 2 + w.numel() * 2 + b.numel() * 4
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"call": f"{cin}->{cout}", "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        c3.append(row)
+        print(f"time conv3x3_bf16 1080p {cin}->{cout} ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    report["conv3x3_bf16_timings"] = c3
+    c3_sum = lambda key: sum(r[key] for r in c3)  # noqa: E731
+    by = max(c3, key=lambda r: r["bound_ms"])["bound_by"]
+
     per_frame = lambda key: sum(r[key] * r["per_frame"] for r in rows)  # noqa: E731
     return {
         "fused_conv": dict(ms=per_frame("ms"), plain_ms=per_frame("plain_ms"),
@@ -542,7 +645,89 @@ def phase5_timings(fast, gen, report):
                     bound_by="bytes"),
         "equalize_u8": dict(ms=eq_ms, plain_ms=eq_plain, bound_ms=eq_bound, library_ms=None,
                             bound_by="bytes"),
+        "conv3x3_bf16": dict(ms=c3_sum("ms"), plain_ms=c3_sum("plain_ms"), bound_ms=c3_sum("bound_ms"),
+                             library_ms=c3_sum("library_ms"), bound_by=by),
     }
+
+
+def phase6_conv3x3_path(gen, report) -> int:
+    """conv3x3_bf16 is on no model path (as in the JAX package): its path
+    is its calls at 1080p, counted like every other."""
+    inputs = [conv3x3_inputs(cin, cout, gen) for cin, cout in CONV3X3_CALLS]
+    torch.cuda.synchronize()
+    build.reset_counts()
+    outs = [conv3x3_bf16(x, w, b) for x, w, b in inputs]
+    torch.cuda.synchronize()
+    counts = dict(build.COUNTS)
+    expect = {"fused_conv": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": len(CONV3X3_CALLS)}
+    print(f"conv3x3_bf16 path launches: {counts} (expected {expect})", flush=True)
+    if counts != expect:
+        fail("conv3x3_bf16 path launch counts differ from the design")
+    for (cin, cout), y in zip(CONV3X3_CALLS, outs):
+        if y.shape != (1, H, W, cout) or y.dtype != torch.bfloat16 or not bool(torch.isfinite(y).all()):
+            fail(f"conv3x3_bf16 {cin}->{cout}: {tuple(y.shape)} {y.dtype}")
+    report["conv3x3_bf16_path"] = counts
+    return counts["conv3x3_bf16"]
+
+
+def phase7_training(sd, report, smi) -> dict:
+    """train_chunk at the full 1080p operating point in each precision."""
+    frames = torch.rand(TRAIN_FRAMES, 1, H, W, 3, generator=torch.Generator().manual_seed(SEED)) * 0.25
+    frames = frames.cuda()
+    flags = torch.zeros(TRAIN_FRAMES, dtype=torch.bool)
+    flags[0] = True
+    kw = dict(of_scale=OF_SCALE, raft_iters=ITERS)
+    expect = {"fused_conv": K1_PER_TRAIN_FRAME * 2 * TRAIN_FRAMES, "gru": GRU_PER_FRAME * 2 * TRAIN_FRAMES,
+              "equalize_u8": EQ_PER_FRAME * 2 * TRAIN_FRAMES, "conv3x3_bf16": 0}
+    out = {}
+    for mode in ("fast", "highest"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(Config(precision=mode, **kw), sd, (1, H, W, 3), device="cuda")
+        reinit_enhancer(state.model, torch.Generator(device="cuda").manual_seed(SEED))
+        state, _ = train_chunk(state, frames[:1], flags[:1], **kw)  # warm-up frame
+        before = [p.detach().clone() for p in state.optimizer.params]
+        bn = state.model.enhance.conv[1]
+        stats0 = bn.running_mean.clone()
+        torch.cuda.synchronize()
+        build.reset_counts()
+        ms, losses = {}, []
+        for bn_train in (True, False):
+            t0 = time.perf_counter()
+            state, loss = train_chunk(state, frames, flags, bn_train=bn_train, **kw)
+            torch.cuda.synchronize()
+            ms[bn_train] = (time.perf_counter() - t0) * 1e3 / TRAIN_FRAMES
+            losses.append(loss)
+            if bn_train:
+                stats1 = bn.running_mean.clone()
+        counts = dict(build.COUNTS)
+        losses = torch.cat(losses).cpu()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        moved = [bool((p.detach() != b).any()) for p, b in zip(state.optimizer.params, before)]
+        print(f"training 1080p of_scale={OF_SCALE} iters={ITERS} {mode}: {ms[True]:.3f} ms/frame with batch-statistics "
+              f"BatchNorm, {ms[False]:.3f} with running statistics ({TRAIN_FRAMES} frames each); peak device memory "
+              f"{peak:.2f} GB; losses {[round(v, 3) for v in losses.tolist()]} on {smi}", flush=True)
+        per_frame = {k: v / (2 * TRAIN_FRAMES) for k, v in counts.items()}
+        print(f"training launches over {2 * TRAIN_FRAMES} frames: {counts} (expected {expect}); per frame "
+              f"{per_frame}: K1 only in RAFT, K2's GRU, K3 once", flush=True)
+        if counts != expect:
+            fail(f"training launch counts differ from the design ({mode})")
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"training losses are not finite ({mode})")
+        if not all(moved):
+            fail(f"{moved.count(False)} trainable parameter tensors did not move ({mode})")
+        if torch.equal(stats1, stats0):
+            fail(f"the running statistics did not move with batch-statistics BatchNorm ({mode})")
+        if not torch.equal(bn.running_mean, stats1):
+            fail(f"the running statistics moved while they normalised ({mode})")
+        out[mode] = {"ms_per_frame_bn_train": ms[True], "ms_per_frame_bn_eval": ms[False], "peak_mem_gb": peak,
+                     "losses": losses.tolist(), "launches": counts, "frames": 2 * TRAIN_FRAMES}
+        out[mode]["trace"] = trace_path(
+            lambda: train_chunk(state, frames, flags, **kw), TRAIN_FRAMES, f"training {mode}"
+        )
+        del state, before
+    report["training"] = out
+    return out
 
 
 def main() -> int:
@@ -574,11 +759,14 @@ def main() -> int:
     counts = phase3_main_path(fast, gen, report, smi)
     phase4_card_vs_cpu(sd, gen, report)
     times = phase5_timings(fast, gen, report)
+    counts["conv3x3_bf16"] = phase6_conv3x3_path(gen, report)
+    del fast, highest
+    phase7_training(sd, report, smi)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": counts[name], "max_abs_err": errs[name], **times[name]}
-        for name in ("fused_conv", "gru", "equalize_u8")
+        for name in ("fused_conv", "gru", "equalize_u8", "conv3x3_bf16")
     ]
     report["kernels"] = kernels
     if args.out is not None:

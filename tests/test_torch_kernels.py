@@ -1,8 +1,9 @@
-"""The plain twins of the port's three CUDA kernels against the Pallas
-kernels they replace (interpret mode, as the JAX package's own tests run
-them) and against the JAX package's XLA paths, on the CPU.
+"""The plain twins of the port's CUDA kernels against the Pallas kernels
+they replace (interpret mode, as the JAX package's own tests run them) and
+against the JAX package's XLA paths, on the CPU.
 
-K1 fused_conv, K2 update_core (K1 + the GRU kernel), K3 equalize_u8.
+K1 fused_conv, K2 update_core (K1 + the GRU kernel), K3 equalize_u8, and
+conv3x3_bf16 (K1 without an epilogue).
 """
 
 import jax
@@ -19,10 +20,12 @@ from zero_tig_tpu.models.raft.update import update_block_apply_fast
 from zero_tig_tpu.models.raft.update_kernel import update_core_kernel
 from zero_tig_tpu.ops import pack_conv as pc
 from zero_tig_tpu.ops.equalize import equalize_uint8
+from zero_tig_tpu.ops.pallas_conv import conv3x3_bf16 as conv3x3_bf16_pallas
 from zero_tig_tpu.ops.pallas_equalize import equalize_uint8_pallas
 from zero_tig_torch.core.checkpoint import from_jax_variables
 from zero_tig_torch.models import build_model
 from zero_tig_torch.models.raft.update import update_core
+from zero_tig_torch.ops.conv3x3 import conv3x3_bf16
 from zero_tig_torch.ops.equalize import equalize_u8
 from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv
 
@@ -160,6 +163,35 @@ def test_k2_f32_matches_update_block_apply_fast_highest(update_case):
     # f32 on both sides, sums in another order. Measured: net 8e-7, delta 1.3e-7
     np.testing.assert_allclose(net.numpy(), np.asarray(ref_net), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(delta.numpy(), np.asarray(ref_delta), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 48), (9, 16), (64, 64)])
+@pytest.mark.parametrize("out_dtype", ["bf16", "f32"])
+def test_conv3x3_bf16_twin_matches_pallas(cin, cout, out_dtype):
+    """K1 in the role of conv3x3_bf16 (its twin here) against the Pallas
+    kernel in interpret mode, as tests/test_pallas_kernels.py:37-56 runs it."""
+    rng = np.random.default_rng(14)
+    x = np.asarray(jnp.asarray(rng.random((2, 9, 16, cin)), jnp.bfloat16), np.float32)
+    w = np.asarray(jnp.asarray(rng.standard_normal((3, 3, cin, cout)) * 0.1, jnp.bfloat16), np.float32)
+    b = (rng.standard_normal(cout) * 0.01).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, BF16) if out_dtype == "bf16" else (jnp.float32, torch.float32)
+    ref = np.asarray(conv3x3_bf16_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), out_dtype=jdt, interpret=True),
+                     np.float32)
+    got = conv3x3_bf16(_t(x), _t(w), _t(b), out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (2, 9, 16, cout)
+    # the same bf16 products summed in f32 in another order: f32 outputs to
+    # f32 rounding, bf16 outputs within one bf16 ulp (2^-7 |ref|) plus that
+    # f32 difference, which can flip the sign of a sum near 0. Measured:
+    # f32 2.4e-6, bf16 identical
+    if out_dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.all(np.abs(got.float().numpy() - ref) <= 2.0**-7 * np.abs(ref) + 1e-5)
+
+
+def test_conv3x3_bf16_refuses_other_taps():
+    with pytest.raises(ValueError, match="3, 3"):
+        conv3x3_bf16(torch.zeros(1, 4, 4, 2), torch.zeros(1, 1, 2, 2))
 
 
 def test_k3_exact_against_equalize_uint8_and_pallas():

@@ -45,7 +45,7 @@ SIGNATURES = {
 
 # launches of each kernel wrapper since the last reset_counts(); a wrapper
 # adds one where it calls into the library, and nowhere else
-COUNTS = {"fused_conv": 0, "gru": 0, "equalize_u8": 0}
+COUNTS = {"fused_conv": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None

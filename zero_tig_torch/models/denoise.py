@@ -8,6 +8,7 @@ and the clamp of its caller fuse into the last layer's epilogue,
     out = clip(anchor - Denoise(cat(parts)), 1e-4, 1)
 
 so neither the input concat nor the anchor concat is written to memory.
+Training differentiates ``train_forward`` instead.
 """
 
 from __future__ import annotations
@@ -18,8 +19,14 @@ import torch
 from torch import nn
 
 from ..ops.fused_conv import fused_conv, prepare_conv
+from .layers import conv2d
 
 EPS = 1e-4
+
+
+def leaky_relu02(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2) as ``jnp.where(x >= 0, x, 0.2 * x)``."""
+    return torch.where(x >= 0, x, 0.2 * x)
 
 
 class Denoise(nn.Module):
@@ -38,6 +45,16 @@ class Denoise(nn.Module):
         x = fused_conv(parts, self.kw["conv1"], act="leaky")
         x = fused_conv([x], self.kw["conv2"], act="leaky")
         return fused_conv([x], self.kw["conv3"], anchor=anchor, lo=EPS, hi=1.0)
+
+    def train_forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The residual Denoise(x) on NHWC ``x`` under autograd: library
+        convolutions on the module's own parameters with operands and
+        activations in ``dtype`` (the training counterpart of the XLA convs
+        the JAX package differentiates)."""
+        x = x.permute(0, 3, 1, 2)
+        x = leaky_relu02(conv2d(self.conv1, x, dtype))
+        x = leaky_relu02(conv2d(self.conv2, x, dtype))
+        return conv2d(self.conv3, x, dtype).permute(0, 2, 3, 1)
 
 
 def Denoise1(chan_embed: int = 48) -> Denoise:

@@ -6,7 +6,8 @@ Port of ``zero_tig_tpu/models/enhancer.py`` with eval BatchNorm: in_conv
 so ``blocks.{0,1,2}`` and ``conv`` name one set of weights); out_conv 64->3,
 sigmoid, clip to [1e-4, 1]. The BatchNorm folds into K1's scale and shift
 (zero_tig_tpu/models/fastpath.py:150-162); the 9-channel input concat is
-done inside the first launch.
+done inside the first launch. Training differentiates ``train_forward``
+instead, with train-mode or eval BatchNorm.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_conv import fused_conv, prepare_conv
-from .layers import EvalBatchNorm2d
+from .layers import EvalBatchNorm2d, batch_norm_train, clip, conv2d
 
 
 class Enhancer(nn.Module):
@@ -44,3 +45,18 @@ class Enhancer(nn.Module):
         for _ in self.blocks:
             fea = fused_conv([fea], self.kw["block"], act="relu", residual=fea)
         return fused_conv([fea], self.kw["out"], act="sigmoid_clip")
+
+    def train_forward(self, x: torch.Tensor, dtype: torch.dtype, *, bn_train: bool) -> torch.Tensor:
+        """s2 from NHWC ``x`` (9 channels) under autograd, operands and
+        activations in ``dtype``. The shared block's gradient sums over its
+        three uses. ``bn_train``: batch statistics, and the running statistics
+        move three times (once per use, as in torch and JAX); otherwise the
+        running statistics normalise and stay."""
+        conv, bn = self.conv[0], self.conv[1]
+        fea = torch.relu(conv2d(self.in_conv[0], x.permute(0, 3, 1, 2), dtype))
+        for _ in self.blocks:
+            y = conv2d(conv, fea, dtype)
+            y = batch_norm_train(bn, y, one_pass=dtype == torch.bfloat16) if bn_train else bn(y)
+            fea = fea + torch.relu(y)
+        s2 = clip(torch.sigmoid(conv2d(self.out_conv[0], fea, dtype)), 1e-4, 1.0)
+        return s2.permute(0, 2, 3, 1)

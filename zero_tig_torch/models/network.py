@@ -1,5 +1,6 @@
-"""The composed Zero-TIG inference network: Denoise_1 -> flow + warp ->
-Enhancer -> Denoise_2.
+"""The composed Zero-TIG network: Denoise_1 -> flow + warp -> Enhancer ->
+Denoise_2, for inference (``forward_inference``, on the kernels) and for
+zero-shot training (``forward_train``, under autograd).
 
 Port of ``zero_tig_tpu/models/network.py::update_cache`` (:139-181) and
 ``forward_inference`` (:619-745; reference Finetunemodel.forward,
@@ -13,15 +14,20 @@ zeroed for the Enhancer and replaced by H2 for Denoise_2.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
 from ..core.precision import check_mode, compute_dtype, numerics
 from ..ops.equalize import equalize01
+from ..ops.filters import blur, pair_downsampler, texture_difference
 from ..ops.resize import resize_bilinear
 from ..ops.warp import warp_tensor
 from .denoise import EPS, Denoise1, Denoise2
 from .enhancer import Enhancer
+from .layers import clip
 from .raft.raft import RAFT
 
 
@@ -37,6 +43,7 @@ class ZeroTIG(nn.Module):
         self.denoise_1 = Denoise1(48)
         self.denoise_2 = Denoise2(48)
         self.raft = RAFT()
+        self.prepared = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -47,10 +54,19 @@ class ZeroTIG(nn.Module):
         return self.denoise_1.conv1.weight.device
 
     def prepare(self) -> "ZeroTIG":
-        """Build the kernels' weight operands (after loading and moving)."""
+        """Build the kernels' weight operands (after loading and moving).
+        They are snapshots: code that changes the weights afterwards (a
+        training step, ``reinit_enhancer``) sets ``prepared`` to False, and
+        the next inference frame prepares again."""
         for m in (self.enhance, self.denoise_1, self.denoise_2, self.raft):
             m.prepare(self.dtype)
+        self.prepared = True
         return self
+
+    def trainable_parameters(self) -> list[nn.Parameter]:
+        """The parameters training updates, each shared one once: the
+        Enhancer and both denoisers. RAFT stays frozen (train.py:98)."""
+        return [p for m in (self.enhance, self.denoise_1, self.denoise_2) for p in m.parameters()]
 
 
 def update_cache(
@@ -83,6 +99,8 @@ def forward_inference(
 ) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], dict]:
     """One frame (B, H, W, 3) f32 in [0, 1] -> ((H2, H3, s3), new_carry),
     all f32 (B, H, W, 3). is_new_seq: bool tensor, scalar or (B,)."""
+    if not model.prepared:
+        model.prepare()
     with numerics(model.precision):
         cdt = model.dtype
         inp = (frame + EPS).to(cdt).contiguous()
@@ -103,3 +121,123 @@ def forward_inference(
     H3 = H5[..., :3].float().contiguous()
     s3 = H5[..., 3:].float().contiguous()
     return (H2.float(), H3, s3), {"last_H3": H3, "last_s3": s3}
+
+
+class TrainOutputs(NamedTuple):
+    """The reference's 23 training outputs (model/model.py:203), NHWC f32,
+    in the order of ``zero_tig_tpu/models/network.py::TrainOutputs``."""
+
+    L_pred1: torch.Tensor
+    L_pred2: torch.Tensor
+    L2: torch.Tensor
+    s2: torch.Tensor
+    s21: torch.Tensor
+    s22: torch.Tensor
+    H2: torch.Tensor
+    H11: torch.Tensor
+    H12: torch.Tensor
+    H13: torch.Tensor
+    s13: torch.Tensor
+    H14: torch.Tensor
+    s14: torch.Tensor
+    H3: torch.Tensor
+    s3: torch.Tensor
+    H3_pred: torch.Tensor
+    H4_pred: torch.Tensor
+    L_pred1_L_pred2_diff: torch.Tensor
+    H3_denoised1_H3_denoised2_diff: torch.Tensor
+    H2_blur: torch.Tensor
+    H3_blur: torch.Tensor
+    H3_denoised1: torch.Tensor
+    H3_denoised2: torch.Tensor
+
+
+def forward_train(
+    model: ZeroTIG,
+    frame: torch.Tensor,
+    carry: dict,
+    is_new_seq: torch.Tensor,
+    *,
+    of_scale: int = 3,
+    raft_iters: int = 12,
+    bn_train: bool = True,
+) -> tuple[TrainOutputs, dict]:
+    """The training forward (reference Network.forward, model/model.py:84-259)
+    on one frame (B, H, W, 3) f32 in [0, 1]: (outputs, new_carry). With
+    ``bn_train`` the Enhancer's running statistics move, in place.
+
+    Port of ``forward_train`` + ``forward_train_core`` (:184-444). Detached,
+    as in the reference: the Enhancer input, the ``H*_pred`` anchors and
+    the whole flow branch. The flow branch (``update_cache``: RAFT and the
+    warp, on K1, K2 and K3) runs under ``no_grad`` on the ``L2`` of this
+    forward, detached: the same value the JAX package computes a second
+    time in its flow phase (:238-241), and never a snapshot of older weights.
+    In fast mode the conv operands and activations are bf16 and the outputs
+    go to f32 at the boundary to the loss, as ``_forward_train_xpack``
+    (:447-616) without its packed layout.
+    """
+    cdt = model.dtype
+    inp = (frame + EPS).to(cdt)
+    L11, L12 = pair_downsampler(inp)
+    d1 = functools.partial(model.denoise_1.train_forward, dtype=cdt)
+    d2 = functools.partial(model.denoise_2.train_forward, dtype=cdt)
+    L_pred1 = L11 - d1(L11)
+    L_pred2 = L12 - d1(L12)
+    L2 = clip(inp - d1(inp), EPS, 1.0)
+
+    with torch.no_grad():
+        w6 = update_cache(
+            model.raft, carry["last_H3"].to(cdt), carry["last_s3"].to(cdt), L2.detach(),
+            of_scale=of_scale, raft_iters=raft_iters,
+        ).to(cdt)
+        new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
+        w6 = torch.where(new, torch.zeros_like(w6), w6)
+    last_H31_wp, last_H32_wp = pair_downsampler(w6[..., :3])
+    last_s31_wp, last_s32_wp = pair_downsampler(w6[..., 3:])
+
+    s2 = model.enhance.train_forward(torch.cat([w6, L2.detach()], -1), cdt, bn_train=bn_train)
+    s21, s22 = pair_downsampler(s2)
+    H2 = clip(inp / s2, EPS, 1.0)
+    H11 = clip(L11 / s21, EPS, 1.0)
+    H12 = clip(L12 / s22, EPS, 1.0)
+
+    def refine(w_H3, w_s3, H, s):
+        anchor = torch.cat([H, s], -1).detach()
+        return clip(anchor - d2(torch.cat([w_H3, w_s3, H, s], -1)), EPS, 1.0)
+
+    H3_pred = refine(last_H31_wp, last_s31_wp, H11, s21)
+    H4_pred = refine(last_H32_wp, last_s32_wp, H12, s22)
+    H5_pred = refine(w6[..., :3], w6[..., 3:], H2, s2)
+
+    # the boundary to the loss: f32 (a no-op in highest mode)
+    L_pred1, L_pred2, L2 = L_pred1.float(), L_pred2.float(), L2.float()
+    s2, s21, s22 = s2.float(), s21.float(), s22.float()
+    H2, H11, H12 = H2.float(), H11.float(), H12.float()
+    H3_pred, H4_pred, H5_pred = H3_pred.float(), H4_pred.float(), H5_pred.float()
+    H3, s3 = H5_pred[..., :3], H5_pred[..., 3:]
+    H3_denoised1, H3_denoised2 = pair_downsampler(H3)
+    H1 = clip(L2 / s2, 0.0, 1.0)
+    outputs = TrainOutputs(
+        L_pred1, L_pred2, L2, s2, s21, s22, H2, H11, H12,
+        H3_pred[..., :3], H3_pred[..., 3:], H4_pred[..., :3], H4_pred[..., 3:],
+        H3, s3, H3_pred, H4_pred,
+        texture_difference(L_pred1, L_pred2), texture_difference(H3_denoised1, H3_denoised2),
+        blur(H1), blur(H3), H3_denoised1, H3_denoised2,
+    )
+    new_carry = {"last_H3": H3.detach().contiguous(), "last_s3": s3.detach().contiguous()}
+    return outputs, new_carry
+
+
+@torch.no_grad()
+def reinit_enhancer(model: ZeroTIG, generator: torch.Generator) -> None:
+    """The reference's Enhancer init (model/model.py:123-130, train.py:82-84),
+    in place: conv kernels ~ N(0, 0.02), biases 0, BatchNorm scale
+    ~ N(1, 0.02); running statistics untouched. Draws on the generator's
+    device, in the order of ``named_parameters`` (the shared block once)."""
+    for name, p in model.enhance.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+            continue
+        noise = torch.randn(p.shape, generator=generator, device=generator.device)
+        p.copy_((1.0 if p.dim() == 1 else 0.0) + 0.02 * noise)
+    model.prepared = False

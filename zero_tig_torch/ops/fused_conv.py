@@ -121,14 +121,33 @@ def fused_conv(
     Cin. ``residual`` (B, H, W, Cout) is added after the activation;
     ``anchor`` (up to 2 parts, channels summing to Cout) switches to the
     ``clip(anchor - conv, lo, hi)`` epilogue."""
-    inputs = list(inputs)
-    anchor = list(anchor)
-    x0 = inputs[0]
-    if x0.device.type == "cpu":
+    if inputs[0].device.type == "cpu":
         return fused_conv_reference(
             inputs, cw, act=act, residual=residual, anchor=anchor,
             lo=lo, hi=hi, out_dtype=out_dtype,
         )
+    out = launch_k1(inputs, cw, act=act, residual=residual, anchor=anchor, lo=lo, hi=hi, out_dtype=out_dtype)
+    build.COUNTS["fused_conv"] += 1
+    return out
+
+
+def launch_k1(
+    inputs: Sequence[torch.Tensor],
+    cw: ConvWeights,
+    *,
+    act: str = "none",
+    residual: torch.Tensor | None = None,
+    anchor: Sequence[torch.Tensor] = (),
+    lo: float = 1e-4,
+    hi: float = 1.0,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Check the operands and launch K1 once on CUDA tensors (raises on what
+    it cannot take). The wrappers ``fused_conv`` and ``conv3x3_bf16`` call
+    it and count the launch under their own names."""
+    inputs = list(inputs)
+    anchor = list(anchor)
+    x0 = inputs[0]
     dtype = x0.dtype
     kh, kw, cin, cout = cw.w.shape
     b, h, w = x0.shape[:3]
@@ -170,5 +189,4 @@ def fused_conv(
         build.stream_handle(x0.device),
     )
     build.check(code, "fused_conv")
-    build.COUNTS["fused_conv"] += 1
     return out
