@@ -10,7 +10,10 @@ zero_tig_torch/csrc from the checkout, then:
   1. prints the card's name and power limit and the build seconds;
   2. holds every kernel against its plain PyTorch twin on the card, at the
      shapes the main path gives it (K1 for every Denoise_1, Enhancer,
-     Denoise_2 and RAFT-update layer in bf16 and f32; K2 on one update
+     Denoise_2 and RAFT-update layer in bf16, on its tensor-core kernel, and
+     in f32, on its FMA kernel; the tensor-core kernel also where its tiling
+     is ragged: Cout 2-126, odd channel parts, sizes off the tile, batch 2,
+     every tap shape and epilogue, on each tile shape; K2 on one update
      iteration at 45x80 against the twins on the CPU; K3 on a 360x640x3
      uint8 image with a constant channel, exactly; conv3x3_bf16 at 1080p,
      64->64 and 48->48, with bf16 and f32 outputs);
@@ -20,14 +23,17 @@ zero_tig_torch/csrc from the checkout, then:
      and that each kernel's launch count is the one the design implies; and
      times ms/frame (median over chunks, after a warm-up chunk); then
      traces one more chunk with torch.profiler and prints the device time
-     per frame of each kernel by exact name and the device's idle share;
+     per frame of each kernel by exact name and the device's idle share, and
+     fails unless every K1 launch of the trace ran the tensor-core kernel;
   4. runs the whole path at 96x128 (3 iterations) on the card and through
      the twins on the CPU, in both precisions, and compares; the same for 2
      training steps;
   5. times each kernel at its main-path shapes beside its bound, its twin
      and the library calls that compute the same function (cuDNN for K1
-     and conv3x3_bf16; torch.mul / torch.lerp for the GRU kernel). Work at
-     full resolution is timed with CUDA events over back-to-back calls;
+     and conv3x3_bf16; torch.mul / torch.lerp for the GRU kernel), K1 per
+     layer with the share of its bound it reaches, and the host's time for
+     one K1 launch. Work at full resolution is timed with CUDA events over
+     back-to-back calls;
      work at the 45x80 RAFT grid and the GRU and K3 kernels, too small to
      outrun the host's launches, inside a CUDA graph;
   6. drives conv3x3_bf16's own path (it is on no model path): one 1080p
@@ -39,7 +45,9 @@ zero_tig_torch/csrc from the checkout, then:
      first frame of each; checks the losses are finite, the parameters
      moved and each kernel's launches per frame (the flow phase: K1, K2,
      K3); prints ms/frame and peak device memory per mode, and traces one
-     more 4-frame chunk (batch statistics) per mode as phase 3 does.
+     more 4-frame chunk (batch statistics) per mode as phase 3 does: fast
+     mode must run K1 on the tensor-core kernel only, highest on the FMA
+     kernel only.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel numbers. With --out DIR, the details also go to
@@ -70,7 +78,7 @@ from zero_tig_torch.models.raft.update import update_core
 from zero_tig_torch.ops import gru
 from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
 from zero_tig_torch.ops.equalize import equalize_u8, equalize_u8_reference
-from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference
+from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference, k1_plan, launch_k1
 from zero_tig_torch.pipeline.steps import init_carry, init_train_state, predict_chunk, train_chunk
 
 H, W, OF_SCALE, ITERS, CHUNK = 1080, 1920, 3, 12, 8
@@ -124,18 +132,21 @@ REPLACES = {
 }
 # the kernels of csrc/*.cu by exact name, and the wrapper that launches each
 OWN_KERNELS = {
-    "zt::fused_conv_kernel": "fused_conv",
+    "zt::fused_conv_mma_kernel": "fused_conv",  # bf16 operands: tensor cores
+    "zt::fused_conv_kernel": "fused_conv",  # f32 operands: FMAs
     "zt::gru_reset_kernel": "gru",
     "zt::gru_update_kernel": "gru",
     "zt::eq_hist_kernel": "equalize_u8",
     "zt::eq_apply_kernel": "equalize_u8",
 }
 SOURCES = {
-    "fused_conv": "zero_tig_torch/csrc/fused_conv.cu",
+    "fused_conv": "zero_tig_torch/csrc/fused_conv_mma.cu (bf16 operands), "
+    "zero_tig_torch/csrc/fused_conv.cu (f32 operands)",
     "gru": "zero_tig_torch/csrc/gru.cu",
     "equalize_u8": "zero_tig_torch/csrc/equalize.cu",
-    "conv3x3_bf16": "zero_tig_torch/csrc/fused_conv.cu",
+    "conv3x3_bf16": "zero_tig_torch/csrc/fused_conv_mma.cu",
 }
+MMA, FMA = "zt::fused_conv_mma_kernel", "zt::fused_conv_kernel"
 
 
 def fail(msg: str) -> None:
@@ -269,6 +280,8 @@ def phase2_kernels(fast, highest, gen, report):
     print(f"K1 ragged (2,37,53) batch 2, 4 inputs, 1x1/3x3/1x5/5x1, residual/anchor/f32-out: "
           f"max_abs_err={odd:.3e} tol=bf16 2^-6 + 2^-8*max|ref|, f32 1e-5 + 1e-5*max|ref| ok", flush=True)
 
+    report["k1_mma_ragged_max_abs_err"] = k1_mma_ragged(gen)
+
     # K2: one update iteration at 45x80, kernels on the card vs twins on the CPU
     k2 = {}
     for mode, model, tol in (("bf16", fast, 3e-2), ("f32", highest, 1e-3)):
@@ -280,7 +293,7 @@ def phase2_kernels(fast, highest, gen, report):
         x["flow"] = 3 * x["flow"]
         flo = ub.flow_features(x["flow"])
         net, delta = update_core(ub.kw, x["net"], x["inp"], x["corr"], flo, x["flow"])
-        kw_cpu = {k: type(v)(*(t.cpu() for t in v)) for k, v in ub.kw.items()}
+        kw_cpu = {k: type(v)(*(t if t is None else t.cpu() for t in v)) for k, v in ub.kw.items()}
         rnet, rdelta = update_core(kw_cpu, x["net"].cpu(), x["inp"].cpu(), x["corr"].cpu(),
                                    flo.cpu(), x["flow"].cpu())
         e_net = float((net.cpu().float() - rnet.float()).abs().max())
@@ -362,6 +375,52 @@ def phase2_kernels(fast, highest, gen, report):
     return {"fused_conv": k1_bf16, "gru": gru_err, "equalize_u8": float(eq_err), "conv3x3_bf16": c3_bf16}
 
 
+def k1_mma_ragged(gen) -> float:
+    """The tensor-core kernel where its tiling is ragged: Cout of 2, 3, 6, 48
+    and 126, input parts that are no multiples of 8 (copied 1, 2 or 4
+    elements at a time), H and W no multiples of the tile, a batch of 2, all
+    four tap shapes and every epilogue, on each of its tile shapes."""
+    bf = torch.bfloat16
+    shapes = ((2, 37, 53), (1, 203, 333))  # 4-row tiles; 8-row tiles
+    part_sets = ((5, 7, 3, 1), (126, 2, 9), (324,), (6, 3, 3), (20, 12))
+    worst, n, tiles = 0.0, 0, set()
+    for si, (b, h, w) in enumerate(shapes):
+        for ti, (kh, kw) in enumerate(((1, 1), (3, 3), (1, 5), (5, 1))):
+            for ci, cout in enumerate((2, 3, 6, 48, 126)):
+                parts = part_sets[(ti + ci + si) % len(part_sets)]
+                cin = sum(parts)
+                xs = [torch.randn(b, h, w, c, generator=gen, device="cuda").to(bf) for c in parts]
+                cw = ConvWeights(
+                    (torch.randn(kh, kw, cin, cout, generator=gen, device="cuda") / (kh * kw * cin) ** 0.5).to(bf),
+                    torch.rand(cout, generator=gen, device="cuda") + 0.5,
+                    torch.randn(cout, generator=gen, device="cuda") * 0.1,
+                )
+                split = max(1, cout // 3)
+                anc = [torch.rand(b, h, w, c, generator=gen, device="cuda").to(bf) for c in (split, cout - split)]
+                res = torch.randn(b, h, w, cout, generator=gen, device="cuda").to(bf)
+                variants = (dict(act="tanh", residual=res), dict(anchor=anc),
+                            dict(act="sigmoid", out_dtype=torch.float32), dict(act="leaky"))
+                plan = k1_plan(bf, kh, kw, tuple(parts), h, w, cout, b)
+                tiles.add(plan.tile)
+                for kwargs in (variants[(ti + ci) % 4], variants[(ti + ci + 1) % 4]):
+                    out = fused_conv(xs, cw, **kwargs)
+                    got, ref = out.float(), fused_conv_reference(xs, cw, **kwargs).float()
+                    # as the ragged case above: a bf16 output one rounding
+                    # apart (2^-8 relative); f32: sums in another order
+                    atol, rtol = (2.0**-6, 2.0**-8) if out.dtype == bf else (1e-5, 1e-5)
+                    err = float((got - ref).abs().max())
+                    if not err <= atol + rtol * float(ref.abs().max()):
+                        fail(f"K1 tensor-core kernel on {(b, h, w)} {kh}x{kw} parts {parts} -> {cout} "
+                             f"{sorted(kwargs)} tile {plan.tile}: err {err}")
+                    worst, n = max(worst, err), n + 1
+    if tiles != set(range(5)):
+        fail(f"the ragged cases reached tile shapes {sorted(tiles)} of 0-4")
+    print(f"K1 tensor-core kernel, {n} ragged cases on (2,37,53) and (1,203,333): Cout 2/3/6/48/126, parts "
+          f"{part_sets}, 1x1/3x3/1x5/5x1, residual/anchor/f32-out/leaky, all 5 tile shapes: "
+          f"max_abs_err={worst:.3e} tol=bf16 2^-6 + 2^-8*max|ref|, f32 1e-5 + 1e-5*max|ref| ok", flush=True)
+    return worst
+
+
 def conv3x3_inputs(cin, cout, gen):
     """A 1080p bf16 activation in [0, 1) (a relu output), bf16 weights and
     an f32 bias at the scale of a trained layer."""
@@ -410,7 +469,8 @@ def phase3_main_path(fast, gen, report, smi):
     report["main_path"] = {"ms_per_frame": ms, "per_chunk_ms_per_frame": per_frame,
                            "launches": counts, "frames": CHUNK,
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    report["trace"] = trace_path(lambda: predict_chunk(fast, frames, carry, flags, **kw), CHUNK, "main path")
+    report["trace"] = trace_path(lambda: predict_chunk(fast, frames, carry, flags, **kw), CHUNK, "main path",
+                               {MMA: K1_PER_FRAME, FMA: 0})
     return counts
 
 
@@ -422,11 +482,13 @@ def kernel_id(name: str) -> str:
     return re.split(r"[<(]", name, maxsplit=1)[0].strip()
 
 
-def trace_path(run, frames: int, label: str) -> dict:
+def trace_path(run, frames: int, label: str, k1_per_frame: dict) -> dict:
     """torch.profiler over ``run`` (``frames`` frames of a path): device ms
     and kernels per frame for each of the port's kernels and for the
     heaviest other kernels, all by exact name, and the device's idle share
-    (1 - union of kernel intervals / traced window)."""
+    (1 - union of kernel intervals / traced window). ``k1_per_frame``: how
+    often a frame must run each of K1's two kernels; the trace fails on any
+    other count."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -452,9 +514,13 @@ def trace_path(run, frames: int, label: str) -> dict:
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    missing = sorted(set(OWN_KERNELS) - set(by_name))
+    missing = sorted(set(OWN_KERNELS) - set(k1_per_frame) - set(by_name))
     if missing:
         fail(f"the trace holds no device kernel named {missing}")
+    k1_seen = {k: round(by_name.get(k, [0.0, 0.0])[1], 6) for k in k1_per_frame}
+    print(f"{label} trace K1 kernels per frame: {k1_seen} (expected {k1_per_frame})", flush=True)
+    if k1_seen != {k: float(v) for k, v in k1_per_frame.items()}:
+        fail(f"{label}: K1 ran on the wrong kernel")
     own = [(k, v) for k, v in rows if k in OWN_KERNELS]
     other = [(k, v) for k, v in rows if k not in OWN_KERNELS]
     print(f"{label} trace of {frames} frames: device busy {busy / 1e3 / frames:.3f} of a {window / 1e3 / frames:.3f} "
@@ -550,8 +616,28 @@ def phase5_timings(fast, gen, report):
                      "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
                      "per_frame": layer[-1]})
         print(f"time K1 {name:18s} ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-              f"bound_ms={bound:.4f} ({by}) x{layer[-1]}/frame", flush=True)
+              f"bound_ms={bound:.4f} ({by}, {bound / ms:.1%} of it reached) x{layer[-1]}/frame", flush=True)
     report["k1_layers"] = rows
+    for where, grid in (("1080p", FULL), ("45x80", RAFT)):
+        sub = [r for r, layer in zip(rows, K1_LAYERS) if layer[3] == grid]
+        tot = {k: sum(r[k] * r["per_frame"] for r in sub) for k in ("ms", "library_ms", "bound_ms")}
+        print(f"time K1 per frame at {where}: ms={tot['ms']:.4f} library_ms={tot['library_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f} over {sum(r['per_frame'] for r in sub)} launches", flush=True)
+
+    # the host's side of one launch_k1 call (checks, plan, ctypes): calls
+    # made back to back with no synchronisation, on a layer short enough
+    # on the device (raft.fh1) that the host sets the pace
+    layer = next(la for la in K1_LAYERS if la[0] == "raft.fh1")
+    cw = layer_weights(fast, layer[1])
+    xs, kwargs = k1_inputs(layer, cw.w.dtype, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        launch_k1(xs, cw, **kwargs)
+    host_us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    print(f"host time of one launch_k1 call (Python + ctypes, no synchronisation): {host_us:.2f} us", flush=True)
+    report["launch_k1_host_us"] = host_us
 
     # K2: a whole update iteration, and the GRU kernel's share
     ub = fast.raft.update_block
@@ -723,7 +809,8 @@ def phase7_training(sd, report, smi) -> dict:
         out[mode] = {"ms_per_frame_bn_train": ms[True], "ms_per_frame_bn_eval": ms[False], "peak_mem_gb": peak,
                      "losses": losses.tolist(), "launches": counts, "frames": 2 * TRAIN_FRAMES}
         out[mode]["trace"] = trace_path(
-            lambda: train_chunk(state, frames, flags, **kw), TRAIN_FRAMES, f"training {mode}"
+            lambda: train_chunk(state, frames, flags, **kw), TRAIN_FRAMES, f"training {mode}",
+            {MMA: K1_PER_TRAIN_FRAME, FMA: 0} if mode == "fast" else {MMA: 0, FMA: K1_PER_TRAIN_FRAME},
         )
         del state, before
     report["training"] = out

@@ -11,6 +11,7 @@ its default packed-pair (xpack) training path.
 """
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -50,11 +51,28 @@ def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 
 
+MODES = [(mode, bn_train) for mode in ("fast", "highest") for bn_train in (True, False)]
+# highest with batch statistics also runs on frames scaled by 1 + 2^-22: the
+# spread that rounding alone gives the JAX package (see the trajectory test)
+SCALES = {("highest", True): (1.0, 1.0 + 2.0**-22)}
+
+
 @pytest.fixture(scope="module")
-def case():
+def jax_side():
+    """Everything the JAX package computes for this file, made once: the
+    weights, and the reference runs of the loss, gradient and trajectory
+    tests. Each program is traced here, one after the other (the precision
+    mode is a global that tracing reads), and XLA compiles them side by side
+    in a few threads, which takes a third of the time of compiling each
+    inside its own test. The programs and their inputs are what the tests
+    would build themselves."""
+    pool = ThreadPoolExecutor(max_workers=4)
+    key0, key1 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
     # jitted: the same values as the eager init, in a third of its time
-    nv = _np_tree(jax.jit(init_network_variables, static_argnums=(1, 2))(jax.random.PRNGKey(0), H, W))
-    rv = _np_tree(jax.jit(init_raft_variables, static_argnums=(1, 2))(jax.random.PRNGKey(1), H, W))
+    low_rv = jax.jit(init_raft_variables, static_argnums=(1, 2)).lower(key1, H, W)
+    rv_job = pool.submit(low_rv.compile)
+    rv_abstract = jax.tree_util.tree_map(lambda o: jax.ShapeDtypeStruct(o.shape, o.dtype), low_rv.out_info)
+    nv = _np_tree(jax.jit(init_network_variables, static_argnums=(1, 2))(key0, H, W))
     rng = np.random.default_rng(2)
     bn = nv["batch_stats"]["enhance"]["block"]["bn"]
     bn["mean"] = rng.uniform(-0.1, 0.1, bn["mean"].shape).astype(np.float32)
@@ -64,25 +82,60 @@ def case():
         "last_H3": rng.uniform(0, 0.5, (1, H, W, 3)).astype(np.float32),
         "last_s3": rng.uniform(0.2, 1, (1, H, W, 3)).astype(np.float32),
     }
-    return nv, rv, frames, carry
-
-
-def _jax_chunks(case, mode: str, bn_train: bool, frame_scales=(1.0,)):
-    """JAX train_chunk from the case's weights, once per scale of the frames
-    (one compiled program for all)."""
-    nv, rv, frames, _ = case
-    precision.set_precision(mode)
+    jcarry = {k: jnp.asarray(v) for k, v in carry.items()}
     try:
-        out = []
-        for scale in frame_scales:
+        # train_chunk in each mode and BatchNorm schedule; the RAFT weights
+        # are still compiling, their shapes are enough to trace
+        chunk_jobs = {}
+        for mode, bn_train in MODES:
+            if bn_train:
+                jax.clear_caches()  # the traces made in the other mode
+            precision.set_precision(mode)
             st = jax_init_train_state(JaxConfig(**KW), nv, frames[0].shape)
-            scaled = jnp.asarray(frames * np.float32(scale))
-            st, losses = jax_train_chunk(st, rv, scaled, jnp.asarray(FLAGS), bn_train=bn_train, **KW)
-            out.append(_np_tree((st.params, st.batch_stats, st.carry, losses)))
-        return out
+            low = jax_train_chunk.lower(st, rv_abstract, jnp.asarray(frames), jnp.asarray(FLAGS), bn_train=bn_train, **KW)
+            chunk_jobs[mode, bn_train] = pool.submit(low.compile)
+        precision.set_precision("highest")
+        rv = _np_tree(rv_job.result()(key1))
+
+        # one identical set of outputs for the loss test: highest
+        # forward_train on frame 1 with a carried state
+        fwd_args = (nv, rv, jnp.asarray(frames[1]), jcarry, jnp.asarray(False))
+        fwd_job = pool.submit(jax.jit(functools.partial(jax_forward_train, **KW)).lower(*fwd_args).compile)
+
+        # step 0 of a sequence (the warped state zeroed) for the gradient test
+        def loss_fn(params):
+            out, _, _ = jax_forward_train(
+                {"params": params, "batch_stats": nv["batch_stats"]}, rv, jnp.asarray(frames[1]), jcarry,
+                jnp.asarray(True), **KW,
+            )
+            return jax_loss(jnp.asarray(frames[1]), out)
+
+        params0 = jax.tree_util.tree_map(jnp.asarray, nv["params"])
+        grad_job = pool.submit(jax.jit(jax.value_and_grad(loss_fn)).lower(params0).compile)
+
+        chunks = {}
+        for (mode, bn_train), job in chunk_jobs.items():
+            compiled, runs = job.result(), []
+            for scale in SCALES.get((mode, bn_train), (1.0,)):
+                precision.set_precision(mode)
+                st = jax_init_train_state(JaxConfig(**KW), nv, frames[0].shape)
+                scaled = jnp.asarray(frames * np.float32(scale))
+                st, losses = compiled(st, rv, scaled, jnp.asarray(FLAGS))
+                runs.append(_np_tree((st.params, st.batch_stats, st.carry, losses)))
+            chunks[mode, bn_train] = runs
+        outputs = _np_tree(fwd_job.result()(*fwd_args)[0])
+        ref_loss, ref_grads = grad_job.result()(params0)
+        grad = float(ref_loss), _np_tree(ref_grads)
     finally:
         precision.set_precision("highest")
+        pool.shutdown()
         jax.clear_caches()
+    return {"case": (nv, rv, frames, carry), "chunks": chunks, "outputs": outputs, "grad": grad}
+
+
+@pytest.fixture(scope="module")
+def case(jax_side):
+    return jax_side["case"]
 
 
 def _sd(nv_params, nv_stats, rv=None):
@@ -129,16 +182,8 @@ def test_filters_match_jax(shape):
 
 
 @pytest.fixture(scope="module")
-def jax_outputs(case):
-    """One identical set of outputs: JAX highest forward_train on frame 1
-    with a carried state."""
-    nv, rv, frames, carry = case
-    precision.set_precision("highest")
-    out, _, _ = jax.jit(functools.partial(jax_forward_train, **KW))(
-        nv, rv, jnp.asarray(frames[1]), {k: jnp.asarray(v) for k, v in carry.items()}, jnp.asarray(False),
-    )
-    jax.clear_caches()
-    return _np_tree(out)
+def jax_outputs(jax_side):
+    return jax_side["outputs"]
 
 
 @pytest.mark.parametrize("is_wb", [False, True])
@@ -153,25 +198,14 @@ def test_loss_matches_jax_on_identical_outputs(case, jax_outputs, is_wb):
     np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
-def test_step0_gradient_matches_jax_value_and_grad(case):
+def test_step0_gradient_matches_jax_value_and_grad(case, jax_side):
     """Step 0 of a sequence (the warped state zeroed): the flow branch, whose
     f32 drift between the packages (7e-6 here) moves the Enhancer's input,
     carries no gradient and is held by the trajectory test instead."""
     nv, rv, frames, carry = case
     frame = frames[1]
-    jcarry = {k: jnp.asarray(v) for k, v in carry.items()}
-    precision.set_precision("highest")
-
-    def loss_fn(params):
-        out, _, _ = jax_forward_train(
-            {"params": params, "batch_stats": nv["batch_stats"]}, rv, jnp.asarray(frame), jcarry,
-            jnp.asarray(True), **KW,
-        )
-        return jax_loss(jnp.asarray(frame), out)
-
-    ref_loss, ref_grads = jax.jit(jax.value_and_grad(loss_fn))(jax.tree_util.tree_map(jnp.asarray, nv["params"]))
-    ref = _sd(_np_tree(ref_grads), nv["batch_stats"])
-    jax.clear_caches()
+    ref_loss, ref_grads = jax_side["grad"]
+    ref = _sd(ref_grads, nv["batch_stats"])
 
     model = init_train_state(Config(**KW), _sd(nv["params"], nv["batch_stats"], rv), (1, H, W, 3), "cpu").model
     outs, _ = forward_train(model, torch.from_numpy(frame), {k: torch.from_numpy(v) for k, v in carry.items()},
@@ -199,12 +233,9 @@ def test_step0_gradient_matches_jax_value_and_grad(case):
 
 @pytest.mark.parametrize("bn_train", [True, False])
 @pytest.mark.parametrize("mode", ["highest", "fast"])
-def test_train_chunk_matches_jax(case, mode, bn_train):
+def test_train_chunk_matches_jax(case, jax_side, mode, bn_train):
     nv, rv, frames, _ = case
-    # highest with batch statistics: also JAX on frames scaled by 1 + 2^-22,
-    # the spread rounding alone gives the JAX package (see below)
-    scales = (1.0, 1.0 + 2.0**-22) if mode == "highest" and bn_train else (1.0,)
-    runs = _jax_chunks(case, mode, bn_train, scales)
+    runs = jax_side["chunks"][mode, bn_train]
     j_params, j_stats, j_carry, j_losses = runs[0]
     state = init_train_state(Config(precision=mode, **KW), _sd(nv["params"], nv["batch_stats"], rv), (1, H, W, 3), "cpu")
     before = {k: v.clone() for k, v in state.model.state_dict().items()}

@@ -19,22 +19,24 @@
 // anchor the concatenation of up to 2 parts. Neither concatenation is ever
 // written to memory: the tile loader picks each channel from its tensor.
 //
-// What bounds it on the H100: at the 1080p layers (48 and 64 channels, 3x3)
-// the work is 100-300 FLOP per byte moved, so a tensor-core kernel would be
-// bound by operations at ~0.15 ms per 64->64 layer. This first version does
-// its arithmetic as f32 FMAs on the CUDA cores (67 TFLOP/s peak, not the
-// 989 TFLOP/s of bf16 tensor cores), so it is bound by FMA issue and by
-// shared-memory loads. Its design keeps that cost down without tensor
-// cores: a block stages an 8x32-pixel input tile (with halo) and the weights
-// of 8 input channels at a time in shared memory, each thread keeps 2 pixels
+// This file is K1 for f32 operands (the "highest" precision mode): every
+// product and sum is an f32 FMA on the CUDA cores, because TF32 tensor-core
+// products would break that mode's f32 parity with the reference. bf16
+// operands (the "fast" mode) never come here: fused_conv_mma.cu computes the
+// same function for them on the bf16 tensor cores, and ops/fused_conv.py
+// (k1_plan) sends each launch to one of the two by its operand type alone.
+//
+// What bounds it on the H100: the f32 FMA rate (67 TFLOP/s peak) and
+// shared-memory loads. Its design keeps that cost down: a block stages an
+// 8x32-pixel input tile (with halo) and the weights of 8 input channels at
+// a time in shared memory, each thread keeps 2 pixels
 // x COB output channels of f32 sums in registers, weights are read as
 // broadcast float4 loads (one load feeds 8 FMAs), and the input tile is laid
 // out channel-major with a row stride of 16 mod 32 words so that the two
-// image rows a warp reads fall on disjoint banks. wgmma and TMA are later
-// work (PERF.md).
+// image rows a warp reads fall on disjoint banks.
 #include <cstdint>
 
-#include "zt_common.cuh"
+#include "fused_conv.cuh"
 
 namespace zt {
 
@@ -44,25 +46,6 @@ constexpr int kPX = 2;         // pixels per thread, kTX apart
 constexpr int kTW = kTX * kPX; // output columns per block
 constexpr int kCIB = 8;        // input channels staged per step
 constexpr int kThreads = kTH * kTX;
-
-enum Act { kNone = 0, kRelu = 1, kLeaky = 2, kSigmoid = 3, kTanh = 4, kSigmoidClip = 5 };
-
-template <typename T>
-struct ConvArgs {
-  const T* in[4];
-  int cin_part[4];
-  int nin;
-  const T* w;  // (kh, kw, Cin, Cout)
-  const float* scale;
-  const float* shift;
-  const T* res;  // (B, H, W, Cout) or null
-  const T* anc[2];
-  int anc_part[2];
-  int nanc;
-  void* out;
-  int B, H, W, Cin, Cout, kh, kw, ph, pw, act;
-  float lo, hi;
-};
 
 __host__ __device__ inline int row_stride(int cols) {
   // smallest stride >= cols with stride % 32 == 16: rows ty and ty+1 of a
@@ -80,29 +63,6 @@ __device__ __forceinline__ float fetch_in(const ConvArgs<T>& a, size_t pix, int 
     }
   }
   return 0.f;
-}
-
-template <typename T>
-__device__ __forceinline__ float fetch_anchor(const ConvArgs<T>& a, size_t pix, int c) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (j < a.nanc) {
-      if (c < a.anc_part[j]) return to_f(a.anc[j][pix * a.anc_part[j] + c]);
-      c -= a.anc_part[j];
-    }
-  }
-  return 0.f;
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case kRelu: return fmaxf(v, 0.f);
-    case kLeaky: return v >= 0.f ? v : 0.2f * v;
-    case kSigmoid: return 1.f / (1.f + expf(-v));
-    case kTanh: return tanhf(v);
-    case kSigmoidClip: return fminf(fmaxf(1.f / (1.f + expf(-v)), 1e-4f), 1.f);
-    default: return v;
-  }
 }
 
 template <typename T, typename TO, int COB>
@@ -197,11 +157,7 @@ __global__ void __launch_bounds__(kThreads) fused_conv_kernel(const ConvArgs<T> 
     for (int o = 0; o < COB; ++o) {
       const int oc = co0 + o;
       if (oc >= a.Cout) continue;
-      float v = acc[p][o] * a.scale[oc] + a.shift[oc];
-      v = activate(v, a.act);
-      if (a.res) v += to_f(a.res[pix * a.Cout + oc]);
-      if (a.nanc) v = fminf(fmaxf(fetch_anchor(a, pix, oc) - v, a.lo), a.hi);
-      out[pix * a.Cout + oc] = from_f<TO>(v);
+      out[pix * a.Cout + oc] = from_f<TO>(epilogue(a, acc[p][o], a.scale[oc], a.shift[oc], pix, oc));
     }
   }
 }
@@ -237,59 +193,12 @@ cudaError_t dispatch_cob(const ConvArgs<T>& a, cudaStream_t stream) {
   return launch<T, TO, 32>(a, stream);
 }
 
-template <typename T>
-ConvArgs<T> make_args(const void* const in[4], const int cin[4], int nin, const void* w,
-                      const void* scale, const void* shift, const void* res,
-                      const void* anc0, const void* anc1, int ac0, int ac1, int nanc,
-                      void* out, int B, int H, int W, int Cout, int kh, int kw, int ph,
-                      int pw, int act, float lo, float hi) {
-  ConvArgs<T> a;
-  a.Cin = 0;
-  for (int j = 0; j < 4; ++j) {
-    a.in[j] = static_cast<const T*>(in[j]);
-    a.cin_part[j] = j < nin ? cin[j] : 0;
-    a.Cin += a.cin_part[j];
-  }
-  a.nin = nin;
-  a.w = static_cast<const T*>(w);
-  a.scale = static_cast<const float*>(scale);
-  a.shift = static_cast<const float*>(shift);
-  a.res = static_cast<const T*>(res);
-  a.anc[0] = static_cast<const T*>(anc0);
-  a.anc[1] = static_cast<const T*>(anc1);
-  a.anc_part[0] = ac0;
-  a.anc_part[1] = ac1;
-  a.nanc = nanc;
-  a.out = out;
-  a.B = B; a.H = H; a.W = W; a.Cout = Cout;
-  a.kh = kh; a.kw = kw; a.ph = ph; a.pw = pw; a.act = act;
-  a.lo = lo; a.hi = hi;
-  return a;
-}
-
 }  // namespace zt
 
-// C entry point, bound with ctypes. Every pointer is a device pointer of a
-// contiguous tensor; operands are bf16 when bf16_operands != 0, else f32;
-// scale/shift are f32; the output is f32 when out_f32 != 0, else the
-// operand type. Returns cudaGetLastError() after the launch.
-extern "C" int zt_fused_conv(
-    const void* in0, const void* in1, const void* in2, const void* in3,
-    int c0, int c1, int c2, int c3, int nin,
-    const void* w, const void* scale, const void* shift, const void* res,
-    const void* anc0, const void* anc1, int ac0, int ac1, int nanc,
-    void* out, int B, int H, int W, int Cout, int kh, int kw, int ph, int pw,
-    int act, float lo, float hi, int bf16_operands, int out_f32, void* stream) {
+// C entry point, bound with ctypes: the launch record of fused_conv.cuh
+// (kCommonSlots slots; every address a device pointer of a contiguous f32
+// tensor) and the stream. Returns cudaGetLastError() after the launch.
+extern "C" int zt_fused_conv(const long long* record, void* stream) {
   using namespace zt;
-  const void* in[4] = {in0, in1, in2, in3};
-  const int cin[4] = {c0, c1, c2, c3};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_operands) {
-    auto a = make_args<bf16>(in, cin, nin, w, scale, shift, res, anc0, anc1, ac0, ac1,
-                             nanc, out, B, H, W, Cout, kh, kw, ph, pw, act, lo, hi);
-    return out_f32 ? dispatch_cob<bf16, float>(a, s) : dispatch_cob<bf16, bf16>(a, s);
-  }
-  auto a = make_args<float>(in, cin, nin, w, scale, shift, res, anc0, anc1, ac0, ac1,
-                            nanc, out, B, H, W, Cout, kh, kw, ph, pw, act, lo, hi);
-  return dispatch_cob<float, float>(a, s);
+  return dispatch_cob<float, float>(make_args<float>(record), static_cast<cudaStream_t>(stream));
 }

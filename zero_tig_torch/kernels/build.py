@@ -32,12 +32,13 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as c_void_p so no
 # 64-bit address is cut to 32 bits
 SIGNATURES = {
-    "zt_fused_conv": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 3 + [_P]
-    + [_I] * 9 + [_F, _F] + [_I, _I] + [_P],
+    # K1: one packed launch record (ops/fused_conv.py::launch_k1) and the
+    # stream: forty separate arguments cost ctypes a third of the call's host time
+    "zt_fused_conv": [ctypes.c_char_p, _P],
+    "zt_fused_conv_mma": [ctypes.c_char_p, _P],
     "zt_gru_reset": [_P, _P, _P, _I, _I, _I, _I, _P],
     "zt_gru_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "zt_equalize_u8": [_P, _P, _P, _I, _I, _I, _P],
@@ -134,4 +135,6 @@ def check(code: int, name: str) -> None:
 def stream_handle(device) -> int:
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    # the raw handle of the current stream (what current_stream(device).cuda_stream
+    # holds), without building the Stream object: K1 asks for it at every launch
+    return torch._C._cuda_getCurrentRawStream(device.index)

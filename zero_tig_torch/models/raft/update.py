@@ -26,18 +26,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.fused_conv import ConvWeights, fused_conv, prepare_conv
+from ...ops.fused_conv import ConvWeights, conv_weights, fused_conv, prepare_conv
 from ...ops.gru import gru_reset, gru_update
 from ..layers import conv2d
 
 
 def _cat_out(a: ConvWeights, b: ConvWeights) -> ConvWeights:
     """Two convs of one input as one: output channels concatenated (exact)."""
-    return ConvWeights(
-        torch.cat([a.w, b.w], dim=-1).contiguous(),
-        torch.cat([a.scale, b.scale]).contiguous(),
-        torch.cat([a.shift, b.shift]).contiguous(),
-    )
+    return conv_weights(torch.cat([a.w, b.w], dim=-1), torch.cat([a.scale, b.scale]), torch.cat([a.shift, b.shift]))
 
 
 class BasicMotionEncoder(nn.Module):

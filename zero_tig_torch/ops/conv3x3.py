@@ -6,11 +6,12 @@ Replaces the Pallas kernel ``zero_tig_tpu/ops/pallas_conv.py::conv3x3_bf16``
     y = conv3x3(x, w) + b     stride 1, same zero padding, NHWC / HWIO,
                               bf16 operands, f32 sums, one cast to out_dtype
 
-On the card it is one launch of K1 (``csrc/fused_conv.cu``) with act
-"none", scale 1 and shift b; K1's weight layout (kh, kw, Cin, Cout) is
-already HWIO. The TPU kernel's three pre-shifted strips, tap groups of at
-most 128 lanes and its W % 8 rule answer TPU limits and are not carried
-over. What bounds it on the H100, and what K1's design does about that, is
+On the card it is one launch of K1's tensor-core kernel
+(``csrc/fused_conv_mma.cu``) with act "none", scale 1 and shift b; K1's
+weight layout (kh, kw, Cin, Cout) is already HWIO, and where Cin is a
+multiple of 16 and Cout of 8 its packed form is the same memory. The TPU
+kernel's three pre-shifted strips, tap groups of at most 128 lanes and its
+W % 8 rule answer TPU limits and are not carried over. What bounds it on the H100, and what K1's design does about that, is
 in the kernel's source note.
 """
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .fused_conv import ConvWeights, fused_conv_reference, launch_k1
+from .fused_conv import ConvWeights, conv_weights, fused_conv_reference, launch_k1
 
 BF16 = torch.bfloat16
 
@@ -29,7 +30,7 @@ def _weights(w: torch.Tensor, b: torch.Tensor | None) -> ConvWeights:
         raise ValueError(f"conv3x3_bf16 takes (3, 3, Cin, Cout) weights, got {tuple(w.shape)}")
     cout = w.shape[-1]
     shift = torch.zeros(cout, device=w.device) if b is None else b.float().contiguous()
-    return ConvWeights(w.to(BF16).contiguous(), torch.ones(cout, device=w.device), shift)
+    return conv_weights(w.to(BF16), torch.ones(cout, device=w.device), shift)
 
 
 def conv3x3_bf16_reference(
