@@ -14,9 +14,11 @@ zero_tig_torch/csrc from the checkout, then:
      in f32, on its FMA kernel; the tensor-core kernel also where its tiling
      is ragged: Cout 2-126, odd channel parts, sizes off the tile, batch 2,
      every tap shape and epilogue, on each tile shape; K2 on one update
-     iteration at 45x80 against the twins on the CPU; K3 on a 360x640x3
-     uint8 image with a constant channel, exactly; conv3x3_bf16 at 1080p,
-     64->64 and 48->48, with bf16 and f32 outputs);
+     iteration at 45x80 against the twins on the CPU; K3's three entries
+     (equalize_u8; equalize01 on f32 and on bf16) exactly, at 360x640x3 on
+     a uniform image with a constant channel, a low-light and an all-equal
+     one, and on a ragged batch of 2, 5 channels and 64 images of 540x960;
+     conv3x3_bf16 at 1080p, 64->64 and 48->48, with bf16 and f32 outputs);
   3. drives the main path: predict_chunk(emit="u8") over 8 frames of
      1920x1080, of_scale=3, 12 RAFT iterations, fast mode, new sequences at
      frames 0 and 4, on seeded random weights; checks the outputs are finite
@@ -32,10 +34,11 @@ zero_tig_torch/csrc from the checkout, then:
      and the library calls that compute the same function (cuDNN for K1
      and conv3x3_bf16; torch.mul / torch.lerp for the GRU kernel), K1 per
      layer with the share of its bound it reaches, and the host's time for
-     one K1 launch. Work at full resolution is timed with CUDA events over
-     back-to-back calls;
-     work at the 45x80 RAFT grid and the GRU and K3 kernels, too small to
-     outrun the host's launches, inside a CUDA graph;
+     one K1 launch; K3's entries on a uniform and a low-light frame beside
+     their plain chains and bounds. Work at full resolution is timed with
+     CUDA events over back-to-back calls; work at the 45x80 RAFT grid and
+     the GRU and K3 kernels, too small to outrun the host's launches, inside
+     a CUDA graph;
   6. drives conv3x3_bf16's own path (it is on no model path): one 1080p
      call at 64->64 and one at 48->48, counted;
   7. drives the training path: train_chunk at 1920x1080, of_scale=3, 12
@@ -77,7 +80,7 @@ from zero_tig_torch.models.network import reinit_enhancer
 from zero_tig_torch.models.raft.update import update_core
 from zero_tig_torch.ops import gru
 from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
-from zero_tig_torch.ops.equalize import equalize_u8, equalize_u8_reference
+from zero_tig_torch.ops.equalize import equalize01, equalize01_reference, equalize_u8, equalize_u8_reference
 from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference, k1_plan, launch_k1
 from zero_tig_torch.pipeline.steps import init_carry, init_train_state, predict_chunk, train_chunk
 
@@ -136,8 +139,7 @@ OWN_KERNELS = {
     "zt::fused_conv_kernel": "fused_conv",  # f32 operands: FMAs
     "zt::gru_reset_kernel": "gru",
     "zt::gru_update_kernel": "gru",
-    "zt::eq_hist_kernel": "equalize_u8",
-    "zt::eq_apply_kernel": "equalize_u8",
+    "zt::equalize_kernel": "equalize_u8",  # both K3 entries: equalize_u8 and equalize01
 }
 SOURCES = {
     "fused_conv": "zero_tig_torch/csrc/fused_conv_mma.cu (bf16 operands), "
@@ -327,23 +329,7 @@ def phase2_kernels(fast, highest, gen, report):
                 fail("GRU kernel disagrees with its twin")
             gru_err = max(gru_err, err)
 
-    # K3: exact, with a constant channel
-    img = torch.randint(0, 256, (1, H // OF_SCALE, W // OF_SCALE, 3), generator=gen,
-                        device="cuda", dtype=torch.uint8)
-    img[..., 1] = 91
-    got, ref = equalize_u8(img), equalize_u8_reference(img)
-    eq_err = int((got.int() - ref.int()).abs().max())
-    ok = eq_err == 0 and torch.equal(got[..., 1], img[..., 1])
-    print(f"K3 equalize_u8 (1,{H // OF_SCALE},{W // OF_SCALE},3) max_abs_err={eq_err} tol=0 (exact) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        fail("K3 equalize_u8 is not exact")
-    img2 = torch.randint(0, 256, (2, 37, 53, 3), generator=gen, device="cuda", dtype=torch.uint8)
-    img2[1, ..., 0] = 5
-    if not torch.equal(equalize_u8(img2), equalize_u8_reference(img2)):
-        fail("K3 equalize_u8 is not exact on (2,37,53,3)")
-    print("K3 equalize_u8 (2,37,53,3) with a constant channel: exact ok", flush=True)
-    report["k3_max_abs_err"] = eq_err
+    eq_err = k3_checks(gen, report)
     report["gru_max_abs_err"] = gru_err
 
     # conv3x3_bf16 (K1 with no epilogue) at 1080p: the same bf16 products,
@@ -373,6 +359,57 @@ def phase2_kernels(fast, highest, gen, report):
     k1_bf16 = max(c["max_abs_err"] for c in k1 if c["mode"] == "bf16")
     c3_bf16 = max(v for k, v in c3.items() if k.endswith("bfloat16"))
     return {"fused_conv": k1_bf16, "gru": gru_err, "equalize_u8": float(eq_err), "conv3x3_bf16": c3_bf16}
+
+
+def k3_cases(gen):
+    """(name, f32 image in [0, 1]) of the cases K3 is held to: uniform with a
+    constant channel, low-light (bytes uint8(clamp(255 * U[0, 0.25))), as
+    the main path's denoised frames fill bins 0-63), all equal, at the main
+    path's (1, 360, 640, 3); a batch of 2 at an odd size (the scalar loads
+    of unaligned groups, and a 9-pixel tail); 5 channels (the scalar path);
+    64 images of 540x960 (more groups than the registers hold)."""
+    h, w = H // OF_SCALE, W // OF_SCALE
+    uniform = torch.rand(1, h, w, 3, generator=gen, device="cuda")
+    uniform[..., 1] = 0.357
+    odd = torch.rand(2, 37, 53, 3, generator=gen, device="cuda")
+    odd[1, ..., 0] = 0.02
+    return [
+        ("uniform, constant channel", uniform),
+        ("low-light", torch.rand(1, h, w, 3, generator=gen, device="cuda") * 0.25),
+        ("all equal", torch.full((1, h, w, 3), 0.5, device="cuda")),
+        ("batch 2 odd", odd),
+        ("5 channels", torch.rand(1, 37, 53, 5, generator=gen, device="cuda")),
+        ("64 images", torch.rand(64, 540, 960, 3, generator=gen, device="cuda") * 0.5),
+    ]
+
+
+def to_u8(x):
+    return torch.clamp(x * 255.0, 0.0, 255.0).to(torch.uint8)
+
+
+def k3_checks(gen, report) -> int:
+    """K3's three entries bit-exact against their twins on the card: the
+    uint8 one (equalize_u8) and the fused one (equalize01) on f32 and bf16."""
+    rows = []
+    for name, x in k3_cases(gen):
+        for entry, inp, run, twin in (
+            ("equalize_u8", to_u8(x), equalize_u8, equalize_u8_reference),
+            ("equalize01 f32", x, equalize01, equalize01_reference),
+            ("equalize01 bf16", x.to(torch.bfloat16), equalize01, equalize01_reference),
+        ):
+            got, ref = run(inp), twin(inp)
+            torch.cuda.synchronize()
+            err = int((got.int() - ref.int()).abs().max()) if got.shape == ref.shape else -1
+            ok = got.dtype == ref.dtype and err == 0
+            if name.startswith("uniform"):  # a constant channel keeps its bytes (step == 0)
+                ok = ok and torch.equal(got[..., 1], (inp if inp.dtype == torch.uint8 else to_u8(inp))[..., 1].to(got.dtype))
+            print(f"K3 {entry:15s} {name:25s} {tuple(x.shape)} max_abs_err={err} tol=0 (exact) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K3 {entry} is not exact on {name}")
+            rows.append({"entry": entry, "case": name, "shape": list(x.shape), "max_abs_err": err})
+    report["k3_checks"] = rows
+    return max(r["max_abs_err"] for r in rows)
 
 
 def k1_mma_ragged(gen) -> float:
@@ -687,16 +724,10 @@ def phase5_timings(fast, gen, report):
           f"plain_ms={gru_plain:.4f} library_ms={gru_lib:.4f} bound_ms={gru_bound:.5f} (bytes), "
           f"CUDA-graph device time per launch", flush=True)
 
-    img = torch.randint(0, 256, (1, H // OF_SCALE, W // OF_SCALE, 3), generator=gen,
-                        device="cuda", dtype=torch.uint8)
-    eq_ms = graph_ms(lambda: equalize_u8(img))
-    eq_plain = graph_ms(lambda: equalize_u8_reference(img))
-    eq_bound = 2 * img.numel() / PEAK_BYTES * 1e3
-    print(f"time K3 equalize_u8 ms={eq_ms:.4f} plain_ms={eq_plain:.4f} bound_ms={eq_bound:.6f} (bytes), "
-          f"CUDA-graph device time", flush=True)
     report["k2"] = {"iteration_ms": iter_ms, "gru_ms": gru_ms, "gru_plain_ms": gru_plain,
                     "gru_library_ms": gru_lib, "gru_bound_ms": gru_bound, "launches_per_iteration": 13}
-    report["k3"] = {"ms": eq_ms, "plain_ms": eq_plain, "bound_ms": eq_bound}
+    report["k3"] = k3 = phase5_k3(gen)
+    eq = k3["low-light"]["bf16"]  # the main path's call: a fast-mode frame
 
     # conv3x3_bf16 at the calls of its own path (phase 6), bf16 output; the
     # library call is one cuDNN conv on the same channels_last bf16 tensors
@@ -729,11 +760,39 @@ def phase5_timings(fast, gen, report):
         "gru": dict(ms=gru_ms * GRU_PER_FRAME, plain_ms=gru_plain * GRU_PER_FRAME,
                     bound_ms=gru_bound * GRU_PER_FRAME, library_ms=gru_lib * GRU_PER_FRAME,
                     bound_by="bytes"),
-        "equalize_u8": dict(ms=eq_ms, plain_ms=eq_plain, bound_ms=eq_bound, library_ms=None,
+        "equalize_u8": dict(ms=eq["ms"], plain_ms=eq["plain_ms"], bound_ms=eq["bound_ms"], library_ms=None,
                             bound_by="bytes"),
         "conv3x3_bf16": dict(ms=c3_sum("ms"), plain_ms=c3_sum("plain_ms"), bound_ms=c3_sum("bound_ms"),
                              library_ms=c3_sum("library_ms"), bound_by=by),
     }
+
+
+def phase5_k3(gen) -> dict:
+    """K3 at the main path's (1, 360, 640, 3) on a uniform and a low-light
+    frame (bins 0-63): the uint8 entry and the fused entry on f32 and bf16
+    (fast mode's call), each beside its plain chain on the card (the ATen
+    casts and the twin) and its bound, the bytes it must move: 2 * numel for
+    the uint8 entry, numel * (sizeof(x) + 4) for the fused one. Device time
+    inside a CUDA graph: one call is far shorter than its host launch."""
+    h, w = H // OF_SCALE, W // OF_SCALE
+    out = {}
+    for case, scale in (("uniform", 1.0), ("low-light", 0.25)):
+        x = torch.rand(1, h, w, 3, generator=gen, device="cuda") * scale
+        rows = {}
+        for entry, inp, run, twin, in_bytes, out_bytes in (
+            ("u8", to_u8(x), equalize_u8, equalize_u8_reference, 1, 1),
+            ("f32", x, equalize01, equalize01_reference, 4, 4),
+            ("bf16", x.to(torch.bfloat16), equalize01, equalize01_reference, 2, 4),
+        ):
+            row = {"ms": graph_ms(lambda: run(inp)), "plain_ms": graph_ms(lambda: twin(inp)),
+                   "bound_ms": inp.numel() * (in_bytes + out_bytes) / PEAK_BYTES * 1e3}
+            rows[entry] = row
+            name = "equalize_u8" if entry == "u8" else f"equalize01 {entry}"
+            print(f"time K3 {name:15s} {case:9s} (1,{h},{w},3) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.6f} (bytes, {row['bound_ms'] / row['ms']:.1%} of it reached), "
+                  f"CUDA-graph device time", flush=True)
+        out[case] = rows
+    return out
 
 
 def phase6_conv3x3_path(gen, report) -> int:

@@ -1,6 +1,7 @@
 """The PyTorch port's weights, plain ops and import hygiene, against the JAX
 package on the same numpy inputs (CPU, f32 / "highest")."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -33,13 +34,19 @@ REPO = Path(__file__).resolve().parents[1]
 F32_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 on both sides; sums in another order
 
 
-def _np_tree(t):
-    return jax.tree_util.tree_map(np.asarray, t)
+def _drawn_like(init, key, rng):
+    """The variable tree ``init(key, 16, 16)`` makes, its shapes from tracing
+    alone (the eager init compiles op by op for tens of seconds), with
+    values drawn with numpy: the conversion under test moves values, it
+    does not read them."""
+    tree = jax.eval_shape(functools.partial(init, h=16, w=16), key)
+    return jax.tree_util.tree_map(lambda a: rng.uniform(0.5, 1.5, a.shape).astype(a.dtype), tree)
 
 
 def test_from_jax_variables_matches_export():
-    nv = _np_tree(init_network_variables(jax.random.PRNGKey(0), 16, 16))
-    rv = _np_tree(init_raft_variables(jax.random.PRNGKey(1), 16, 16))
+    rng = np.random.default_rng(0)
+    nv = _drawn_like(init_network_variables, jax.random.PRNGKey(0), rng)
+    rv = _drawn_like(init_raft_variables, jax.random.PRNGKey(1), rng)
     ref = export_torch_state_dict(nv, rv)
     got = from_jax_variables(nv, rv)
     assert set(got) == set(ref)

@@ -52,6 +52,14 @@ def from_jax_variables(net_vars: dict, raft_vars: dict | None = None) -> dict[st
     return {k: torch.as_tensor(np.array(v, copy=True)) for k, v in out.items()}
 
 
+def from_jax_raft_variables(raft_vars: dict) -> dict[str, torch.Tensor]:
+    """A RAFT {'params', 'batch_stats'} tree, or a part of one (one block),
+    -> its 'raft.*' state-dict entries."""
+    out: dict[str, np.ndarray] = {}
+    _raft(out, raft_vars)
+    return {k: torch.as_tensor(np.array(v, copy=True)) for k, v in out.items()}
+
+
 def _raft(out: dict, raft_vars: dict) -> None:
     def walk(tree: Any, path: tuple[str, ...], collection: str) -> None:
         for name, sub in tree.items():

@@ -41,7 +41,7 @@ SIGNATURES = {
     "zt_fused_conv_mma": [ctypes.c_char_p, _P],
     "zt_gru_reset": [_P, _P, _P, _I, _I, _I, _I, _P],
     "zt_gru_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "zt_equalize_u8": [_P, _P, _P, _I, _I, _I, _P],
+    "zt_equalize": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # launches of each kernel wrapper since the last reset_counts(); a wrapper
