@@ -50,7 +50,27 @@ zero_tig_torch/csrc from the checkout, then:
      K3); prints ms/frame and peak device memory per mode, and traces one
      more 4-frame chunk (batch statistics) per mode as phase 3 does: fast
      mode must run K1 on the tensor-core kernel only, highest on the FMA
-     kernel only.
+     kernel only;
+  8. drives the command-line entry points in this process at 1920x1080
+     (of_scale=3, 12 RAFT iterations): on a fixture of 2 scenes x 4 frames
+     (make_rlv_fixture, with ground truth and the occluder) and a .pt of the
+     seeded weights (save_pt), predict in fast mode with --chunk 4, whose
+     _denoise/_enhance PNGs must equal predict_chunk(emit="u8") on the
+     frames iter_u8 yields byte for byte, twice (the second run timed: CLI
+     wall ms/frame with its set-up, decode and PNG-write ms/frame, peak
+     device memory); then on a stream of 6 scenes x 4 frames linked to the
+     fixture's, equal the same way and timed at steady state from its PNGs'
+     modification times; the port's PNG writer beside Pillow's and OpenCV's
+     where they import; predict with --enh_scale 2 on 4 frames, equal to
+     predict_chunk(enh_scale=2); predict in the default highest mode on 4
+     frames, equal the same way;
+     train in fast mode for 2 epochs with --chunk 2 (finite losses,
+     weights_<e>.pt and state_<e>.pt, 8 eval PNGs per epoch and kind, ms per
+     training frame), then --resume from state_0.pt on the first scene,
+     which must start at epoch 1; evals with weights_1.pt on 2 frames
+     (Metrics.json with its 6 keys, finite PSNR and SSIM, LPIPS null). Each
+     CLI run's kernel launches are counted from 0 and must be those of its
+     frames.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel numbers. With --out DIR, the details also go to
@@ -60,20 +80,35 @@ DIR/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
+import importlib.util
+import io
 import json
+import logging
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 
+from zero_tig_torch import native
+from zero_tig_torch.cli import evals as cli_evals
+from zero_tig_torch.cli import predict as cli_predict
+from zero_tig_torch.cli import train as cli_train
 from zero_tig_torch.core import precision
+from zero_tig_torch.core.checkpoint import save_pt
 from zero_tig_torch.core.config import Config
+from zero_tig_torch.data import create_dataset, make_rlv_fixture
 from zero_tig_torch.kernels import build
 from zero_tig_torch.models import build_model, init_random_state_dict
 from zero_tig_torch.models.network import reinit_enhancer
@@ -876,6 +911,312 @@ def phase7_training(sd, report, smi) -> dict:
     return out
 
 
+CLI_FRAMES = 8  # the fixture's test frames: 2 scenes x 4
+FIXTURE_SCENES, FIXTURE_FRAMES = ("S01", "S02"), 4
+LONG_SCENES = 6  # the steady-state predict run: 6 scenes x 4 frames, linked to the fixture's two
+CLI_FLAGS = ["--dataset", "RLV", "--of_scale", str(OF_SCALE), "--raft_iters", str(ITERS),
+             "--frame_width", str(W), "--frame_height", str(H)]
+
+
+def run_cli(label: str, main, argv: list[str]) -> tuple[float, str]:
+    """One CLI ``main(argv)`` in this process with its standard output
+    captured: (wall seconds, output). Any exception fails the smoke."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - reported, and the run fails
+        print(out.getvalue()[-4000:], flush=True)
+        fail(f"{label}: {type(e).__name__}: {e}")
+    finally:
+        root = logging.getLogger()  # the CLI's handlers write to files of this run's temporary directory
+        for h in list(root.handlers):
+            root.removeHandler(h)
+            h.close()
+    return time.perf_counter() - t0, out.getvalue()
+
+
+def expect_counts(label: str, counts: dict, frames: int, train_frames: int = 0) -> None:
+    """The launches ``frames`` inference frames and ``train_frames`` training
+    (or training-model eval) frames make."""
+    want = {"fused_conv": K1_PER_FRAME * frames + K1_PER_TRAIN_FRAME * train_frames,
+            "gru": GRU_PER_FRAME * (frames + train_frames), "equalize_u8": EQ_PER_FRAME * (frames + train_frames),
+            "conv3x3_bf16": 0}
+    print(f"{label} launches: {counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"{label}: launch counts differ from the design")
+
+
+def reference_u8(model, frames, flags, chunk: int, enh_scale: int = 1):
+    """predict_chunk(emit="u8") over the frames in chunks of ``chunk``, the
+    carry threaded through: what the predict CLI must have written."""
+    carry = init_carry(model, (1, H, W, 3))
+    h2s, h3s = [], []
+    for i in range(0, len(frames), chunk):
+        (h2, h3), carry = predict_chunk(model, frames[i:i + chunk], carry, flags[i:i + chunk],
+                                        of_scale=OF_SCALE, raft_iters=ITERS, enh_scale=enh_scale, emit="u8")
+        h2s.append(h2.cpu())
+        h3s.append(h3.cpu())
+    return torch.cat(h2s)[:, 0].numpy(), torch.cat(h3s)[:, 0].numpy()
+
+
+def check_predict_pngs(label: str, save: Path, recs, h2, h3) -> None:
+    """The predict CLI's 2 PNGs per frame, at <save>/<scene>/<brightness>/,
+    decode to exactly the reference's bytes."""
+    want = {f"{Path(r.path).parts[-3]}/{Path(r.path).parts[-2]}/{r.name}_{kind}.png"
+            for r in recs for kind in ("denoise", "enhance")}
+    got = {str(p.relative_to(save)) for p in save.rglob("*.png")}
+    if got != want:
+        fail(f"{label}: wrote {sorted(got)[:4]}..., expected {sorted(want)[:4]}... ({len(got)} vs {len(want)})")
+    worst = 0
+    for i, r in enumerate(recs):
+        d = save / Path(r.path).parts[-3] / Path(r.path).parts[-2]
+        for kind, ref in (("denoise", h3[i]), ("enhance", h2[i])):
+            img = native.read_rgb(d / f"{r.name}_{kind}.png")
+            diff = int(np.abs(img.astype(np.int32) - ref.astype(np.int32)).max())
+            worst = max(worst, diff)
+            if diff:
+                fail(f"{label}: {r.name}_{kind}.png differs from predict_chunk by up to {diff} levels")
+    print(f"{label}: {len(want)} PNGs, each byte-equal to predict_chunk(emit='u8') (max diff {worst})",
+          flush=True)
+
+
+def steady_ms_per_frame(save: Path, first_scene: str, frames: int, chunk: int) -> float:
+    """ms per frame of a predict CLI run at steady state, from its PNGs'
+    modification times: from the last PNG of its first chunk (the scene
+    ``first_scene``) to the last PNG of the run, over the frames between."""
+    first = max(p.stat().st_mtime_ns for p in (save / first_scene).rglob("*.png"))
+    last = max(p.stat().st_mtime_ns for p in save.rglob("*.png"))
+    return (last - first) / 1e6 / (frames - chunk)
+
+
+def time_png_writers(tmp: Path, images) -> dict:
+    """ms per 1080p PNG of the port's writer, and of Pillow's and OpenCV's
+    where they import (the port needs neither), on the same images."""
+    writers = {"port": lambda path, img: native.write_png(path, img)}
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        writers["pillow"] = lambda path, img: Image.fromarray(img).save(path)
+    if importlib.util.find_spec("cv2") is not None:
+        import cv2
+
+        writers["opencv"] = lambda path, img: cv2.imwrite(str(path), img[..., ::-1])
+    out = {}
+    for name, write in writers.items():
+        t0 = time.perf_counter()
+        for img in images:
+            write(tmp / f"w_{name}.png", img)
+        out[name] = (time.perf_counter() - t0) * 1e3 / len(images)
+    return out
+
+
+def log_epoch_ms(log: str, epoch: int, frames: int, chunk: int) -> float | None:
+    """ms per training frame of one epoch's loop, from log.txt's stamps:
+    from the end of its first chunk to the end of its last."""
+    stamps = []
+    for line in log.splitlines():
+        m = re.match(rf"(\S+ \S+) train-epoch {epoch:03d} (\d+) ", line)
+        if m:
+            stamps.append((int(m.group(2)), time.mktime(time.strptime(m.group(1)[:19], "%Y-%m-%d %H:%M:%S"))
+                           + int(m.group(1)[20:]) / 1e3))
+    ends = [t for i, t in stamps if i % chunk == chunk - 1]
+    if len(ends) < 2:
+        return None
+    return (ends[-1] - ends[0]) * 1e3 / (frames - chunk)
+
+
+def phase8_cli(sd, report, smi, main_ms: float) -> None:
+    """The command-line entry points at 1080p, in this process."""
+    found = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
+    print(f"importable on this machine (the port needs neither for PNG frames): Pillow {found['PIL']}, "
+          f"OpenCV {found['cv2']}", flush=True)
+    out: dict = {"pillow_importable": found["PIL"], "cv2_importable": found["cv2"]}
+    with tempfile.TemporaryDirectory(prefix="zt_cli_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        fx = make_rlv_fixture(str(tmp / "rlv"), scenes=FIXTURE_SCENES, frames_per_scene=FIXTURE_FRAMES,
+                              size=(W, H), occluder=True)
+        fx4 = tmp / "rlv4"  # the first scene alone: 4 frames
+        fx4.mkdir()
+        (fx4 / "input").symlink_to(Path(fx) / "input", target_is_directory=True)
+        (fx4 / "gt").symlink_to(Path(fx) / "gt", target_is_directory=True)
+        for lst in ("train_list.txt", "test_list.txt"):
+            (fx4 / lst).write_text(FIXTURE_SCENES[0] + "\n")
+        fx2 = tmp / "rlv2"  # its first 2 frames, for evals (its metrics take seconds a 1080p frame on the host)
+        (fx2 / "input" / FIXTURE_SCENES[0] / "low_light_10").mkdir(parents=True)
+        for f in sorted((Path(fx) / "input" / FIXTURE_SCENES[0] / "low_light_10").glob("*.png"))[:2]:
+            (fx2 / "input" / FIXTURE_SCENES[0] / "low_light_10" / f.name).symlink_to(f)
+        (fx2 / "gt").symlink_to(Path(fx) / "gt", target_is_directory=True)
+        for lst in ("train_list.txt", "test_list.txt"):
+            (fx2 / lst).write_text(FIXTURE_SCENES[0] + "\n")
+        fx_long = tmp / "rlv_long"  # LONG_SCENES scenes, each a link to a scene of the fixture: a longer stream
+        for i in range(LONG_SCENES):
+            (fx_long / "input").mkdir(parents=True, exist_ok=True)
+            (fx_long / "input" / f"L{i}").symlink_to(Path(fx) / "input" / FIXTURE_SCENES[i % 2],
+                                                     target_is_directory=True)
+        for lst in ("train_list.txt", "test_list.txt"):
+            (fx_long / lst).write_text("".join(f"L{i}\n" for i in range(LONG_SCENES)))
+        pt = tmp / "seeded.pt"
+        save_pt(pt, build_model(sd, device="cpu", precision="highest"))
+        print(f"fixture: {len(FIXTURE_SCENES)} scenes x {FIXTURE_FRAMES} frames of {W}x{H} with ground truth and "
+              f"the occluder, and the seeded weights as a .pt, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the frames as the CLI reads them, and the decode's own time (the
+        # codec's one-time build first: a checkout builds it at first use)
+        t0 = time.perf_counter()
+        native.library()
+        print(f"PNG codec built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+        ds = create_dataset("RLV", fx, "test", size=(W, H))
+        t0 = time.perf_counter()
+        recs = list(ds.iter_u8())
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(recs)
+        if len(recs) != CLI_FRAMES:
+            fail(f"the fixture's test split holds {len(recs)} frames, not {CLI_FRAMES}")
+        frames = torch.from_numpy(np.stack([r.image for r in recs])[:, None]).cuda()
+        flags = torch.tensor([r.is_new_seq for r in recs])
+        if flags.tolist() != [True, False, False, False] * 2:
+            fail(f"is_new_seq over the fixture: {flags.tolist()}")
+
+        # (b) predict, fast, chunks of 4: twice, the second run timed
+        fast = build_model(sd, device="cuda", precision="fast")
+        ref_h2, ref_h3 = reference_u8(fast, frames, flags, 4)
+        common = CLI_FLAGS + ["--lowlight_images_path", fx, "--model_pretrain", str(pt)]
+        runs = []
+        for run in range(2):
+            save = tmp / f"pred_fast_{run}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_counts()
+            secs, _ = run_cli(f"predict fast run {run}", cli_predict.main,
+                              common + ["--save", str(save), "--precision", "fast", "--chunk", "4"])
+            counts = dict(build.COUNTS)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            expect_counts(f"predict CLI fast run {run}", counts, CLI_FRAMES)
+            check_predict_pngs(f"predict CLI fast run {run}", save, recs, ref_h2, ref_h3)
+            runs.append({"ms_per_frame": secs * 1e3 / CLI_FRAMES, "peak_mem_gb": peak, "launches": counts})
+        # the same CLI on a stream of LONG_SCENES x 4 frames, timed at steady
+        # state: what a user streaming a folder sees a frame, set-up excluded
+        long_recs = list(create_dataset("RLV", str(fx_long), "test", size=(W, H)).iter_u8())
+        long_flags = torch.tensor([r.is_new_seq for r in long_recs])
+        long_h2, long_h3 = reference_u8(
+            fast, torch.from_numpy(np.stack([r.image for r in long_recs])[:, None]).cuda(), long_flags, 4)
+        save = tmp / "pred_fast_long"
+        build.reset_counts()
+        secs, _ = run_cli("predict fast long", cli_predict.main,
+                          CLI_FLAGS + ["--lowlight_images_path", str(fx_long), "--model_pretrain", str(pt),
+                                       "--save", str(save), "--precision", "fast", "--chunk", "4"])
+        expect_counts("predict CLI fast long", dict(build.COUNTS), len(long_recs))
+        steady_ms = steady_ms_per_frame(save, "L0", len(long_recs), 4)
+        check_predict_pngs("predict CLI fast long", save, long_recs, long_h2, long_h3)
+        del long_recs, long_h2, long_h3
+        # the PNG writes of one run on their own: 2 per frame; then the
+        # port's writer beside Pillow's and OpenCV's on the first 2 frames
+        t0 = time.perf_counter()
+        for i in range(CLI_FRAMES):
+            native.write_png(tmp / "w_denoise.png", ref_h3[i])
+            native.write_png(tmp / "w_enhance.png", ref_h2[i])
+        write_ms = (time.perf_counter() - t0) * 1e3 / CLI_FRAMES
+        writers = time_png_writers(tmp, [ref_h3[0], ref_h2[0], ref_h3[1], ref_h2[1]])
+        cli_ms = runs[1]["ms_per_frame"]
+        print(f"predict CLI 1080p fast chunk=4: {steady_ms:.3f} ms/frame at steady state over the last "
+              f"{4 * LONG_SCENES - 4} of {4 * LONG_SCENES} frames (PNG times; {secs * 1e3 / (4 * LONG_SCENES):.3f} "
+              f"wall with set-up); {cli_ms:.3f} ms/frame wall over {CLI_FRAMES} frames with model build, .pt load "
+              f"and data set-up (first run {runs[0]['ms_per_frame']:.3f}); frame decode (iter_u8) "
+              f"{decode_ms:.3f} ms/frame; PNG writes (2 a frame) {write_ms:.3f} ms/frame; phase 3's predict_chunk "
+              f"{main_ms:.3f} ms/frame; peak device memory {runs[1]['peak_mem_gb']:.3f} GB on {smi}", flush=True)
+        print("1080p PNG writers, ms per PNG on the first 2 frames' 4 outputs: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in writers.items()), flush=True)
+        out["predict_fast"] = {"runs": runs, "cli_ms_per_frame": cli_ms, "decode_ms_per_frame": decode_ms,
+                               "png_write_ms_per_frame": write_ms, "predict_chunk_ms_per_frame": main_ms,
+                               "frames": CLI_FRAMES, "steady_ms_per_frame": steady_ms,
+                               "long_frames": 4 * LONG_SCENES, "long_wall_ms_per_frame": secs * 1e3 / (4 * LONG_SCENES),
+                               "png_writer_ms_per_png": writers}
+
+        # the Enhancer at half resolution (--enh_scale 2), 4 frames
+        ref_h2, ref_h3 = reference_u8(fast, frames[:4], flags[:4], 4, enh_scale=2)
+        save = tmp / "pred_enh2"
+        build.reset_counts()
+        secs, _ = run_cli("predict enh_scale 2", cli_predict.main,
+                          CLI_FLAGS + ["--lowlight_images_path", str(fx4), "--model_pretrain", str(pt),
+                                       "--save", str(save), "--precision", "fast", "--chunk", "4",
+                                       "--enh_scale", "2"])
+        expect_counts("predict CLI fast --enh_scale 2", dict(build.COUNTS), 4)
+        check_predict_pngs("predict CLI fast --enh_scale 2", save, recs[:4], ref_h2, ref_h3)
+        out["predict_enh_scale2"] = {"ms_per_frame": secs * 1e3 / 4, "frames": 4}
+        del fast
+
+        # (c) predict, the default precision (highest: the f32 K1), 4 frames
+        highest = build_model(sd, device="cuda", precision="highest")
+        ref_h2, ref_h3 = reference_u8(highest, frames[:4], flags[:4], 4)
+        del highest
+        save = tmp / "pred_highest"
+        build.reset_counts()
+        secs, _ = run_cli("predict highest", cli_predict.main,
+                          CLI_FLAGS + ["--lowlight_images_path", str(fx4), "--model_pretrain", str(pt),
+                                       "--save", str(save), "--chunk", "4"])
+        expect_counts("predict CLI highest", dict(build.COUNTS), 4)
+        check_predict_pngs("predict CLI highest", save, recs[:4], ref_h2, ref_h3)
+        out["predict_highest"] = {"ms_per_frame": secs * 1e3 / 4, "frames": 4}
+        print(f"predict CLI 1080p highest chunk=4: {secs * 1e3 / 4:.3f} ms/frame wall over 4 frames", flush=True)
+
+        # (d) train, fast, 2 epochs of 8 frames in chunks of 2, then a resume
+        exp = tmp / "exp"
+        train_flags = CLI_FLAGS + ["--lowlight_images_path", fx, "--precision", "fast", "--chunk", "2",
+                                   "--epochs", "2"]
+        build.reset_counts()
+        secs, _ = run_cli("train", cli_train.main, train_flags + ["--save", str(exp)])
+        # 2 epochs of 8 training frames and 8 eval frames, all on the training model
+        expect_counts("train CLI", dict(build.COUNTS), 0, 4 * CLI_FRAMES)
+        (run_dir,) = glob.glob(str(exp / "Train-*"))
+        run_dir = Path(run_dir)
+        log = (run_dir / "log.txt").read_text()
+        losses = [float(v) for v in re.findall(r"train-epoch \d{3} \d{3} (\S+)", log)]
+        if len(losses) != 2 * CLI_FRAMES or not all(math.isfinite(v) for v in losses):
+            fail(f"train CLI losses: {losses}")
+        for name in ("weights_0.pt", "weights_1.pt", "state_0.pt", "state_1.pt"):
+            if not (run_dir / "model_epochs" / name).exists():
+                fail(f"train CLI wrote no model_epochs/{name}")
+        for kind in ("denoise", "enhance"):
+            for e in (0, 1):
+                n = len(list((run_dir / "result" / kind).glob(f"*_{kind}_{e}.png")))
+                if n != CLI_FRAMES:
+                    fail(f"train CLI: {n} {kind} PNGs for epoch {e}, expected {CLI_FRAMES}")
+        train_ms = {e: log_epoch_ms(log, e, CLI_FRAMES, 2) for e in (0, 1)}
+        print(f"train CLI 1080p fast chunk=2, 2 epochs x {CLI_FRAMES} frames: losses "
+              f"{[round(v, 3) for v in losses]}; training loop {train_ms[0]:.3f} ms/frame in epoch 0 (batch "
+              f"statistics), {train_ms[1]:.3f} in epoch 1 (running statistics), from log.txt's stamps; "
+              f"{secs:.1f} s wall with the eval dumps and saves", flush=True)
+        # the resumed run's epoch on the first scene alone: what is checked is where it starts
+        resume_flags = [f if f != fx else str(fx4) for f in train_flags]
+        secs_r, _ = run_cli("train --resume", cli_train.main,
+                            resume_flags + ["--save", str(tmp / "exp_resume"),
+                                            "--resume", str(run_dir / "model_epochs" / "state_0.pt")])
+        (resumed,) = glob.glob(str(tmp / "exp_resume" / "Train-*"))
+        rlog = (Path(resumed) / "log.txt").read_text()
+        if "(epoch 1)" not in rlog or "train-epoch 000" in rlog or "train-epoch 001 003" not in rlog:
+            fail("train CLI --resume state_0.pt did not run epoch 1 alone")
+        print(f"train CLI --resume state_0.pt: started at epoch 1 ({secs_r:.1f} s)", flush=True)
+        out["train_fast"] = {"losses": losses, "loop_ms_per_frame": train_ms, "wall_s": secs, "resume_wall_s": secs_r}
+
+        # (e) evals with weights_1.pt on 2 frames
+        save = tmp / "eval"
+        secs, _ = run_cli("evals", cli_evals.main,
+                          CLI_FLAGS + ["--lowlight_images_path", str(fx2), "--precision", "fast",
+                                       "--model_pretrain", str(run_dir / "model_epochs" / "weights_1.pt"),
+                                       "--save", str(save)])
+        metrics = json.loads((save / "Metrics.json").read_text())
+        keys = {"Total_PSNR", "Total_SSIM", "Total_LPIPS", "Total_PSNR_HM", "Total_SSIM_HM", "Total_LPIPS_HM"}
+        finite = all(math.isfinite(metrics[k]) for k in keys if "LPIPS" not in k)
+        if set(metrics) != keys or not finite or metrics["Total_LPIPS"] is not None:
+            fail(f"evals Metrics.json: {metrics}")
+        print(f"evals CLI 1080p fast, 2 frames with weights_1.pt: {metrics} ({secs:.1f} s)", flush=True)
+        out["evals"] = {"metrics": metrics, "wall_s": secs}
+    report["cli"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Build the port's kernels and drive its main path on one card.")
     ap.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json (details)")
@@ -908,6 +1249,7 @@ def main() -> int:
     counts["conv3x3_bf16"] = phase6_conv3x3_path(gen, report)
     del fast, highest
     phase7_training(sd, report, smi)
+    phase8_cli(sd, report, smi, report["main_path"]["ms_per_frame"])
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

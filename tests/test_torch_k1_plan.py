@@ -30,6 +30,9 @@ from zero_tig_torch.ops.fused_conv import (
 )
 
 BF16 = torch.bfloat16
+# the Enhancer's launches at enh_scale=2: its five layers at 540x960
+ENH_HALF = [(f"{la[0]}@540x960", *la[1:3], (540, 960), *la[4:]) for la in chip_smoke.K1_LAYERS if la[0].startswith("enh.")]
+LAYERS = chip_smoke.K1_LAYERS + ENH_HALF
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +45,7 @@ def _plan(layer, cw, dtype=BF16):
     return k1_plan(dtype, kh, kw, tuple(layer[2]), *layer[3], cout)
 
 
-@pytest.mark.parametrize("layer", chip_smoke.K1_LAYERS, ids=[la[0] for la in chip_smoke.K1_LAYERS])
+@pytest.mark.parametrize("layer", LAYERS, ids=[la[0] for la in LAYERS])
 def test_main_path_layer_takes_the_tensor_core_kernel(fast_model, layer):
     cw = chip_smoke.layer_weights(fast_model, layer[1])
     kh, kw, cin, cout = cw.w.shape

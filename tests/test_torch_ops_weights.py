@@ -106,9 +106,13 @@ def test_corr_pyramid_and_lookup_match_jax():
 
 
 def test_import_pulls_in_no_jax():
+    # nor flax, OpenCV or Pillow: the machine with the card has none of them
     code = (
-        "import sys, zero_tig_torch.pipeline.steps, zero_tig_torch.models;"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'zero_tig_tpu'))];"
+        "import sys, zero_tig_torch.pipeline.steps, zero_tig_torch.models, zero_tig_torch.data, zero_tig_torch.eval,"
+        " zero_tig_torch.core.train_ckpt, zero_tig_torch.native, chip_smoke;"
+        "import zero_tig_torch.cli.train, zero_tig_torch.cli.predict, zero_tig_torch.cli.evals,"
+        " zero_tig_torch.cli.run_pipeline;"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', 'PIL') or m.startswith(('jax.', 'flax.', 'zero_tig_tpu', 'cv2.', 'PIL.'))];"
         "assert not bad, bad"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -118,6 +122,7 @@ def test_import_pulls_in_no_jax():
 def test_port_sources_name_no_jax():
     files = list((REPO / "zero_tig_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     files += list((REPO / "zero_tig_torch" / "csrc").glob("*.cu*"))
+    files += [REPO / "zero_tig_torch" / "native" / "pngio.cpp"]
     for f in files:
         text = f.read_text()
         assert "zero_tig_tpu" not in text.replace("zero_tig_tpu/", ""), f

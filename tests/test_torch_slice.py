@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from zero_tig_tpu.core import precision
 from zero_tig_tpu.models.network import init_network_variables
@@ -108,3 +109,21 @@ def test_predict_chunk_accepts_uint8_frames(case):
     (a, _, _), _ = predict_chunk(model, u8, carry, flags, **KW)
     (b, _, _), _ = predict_chunk(model, u8.astype(np.float32) / 255.0, carry, flags, **KW)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_enh_scale_matches_jax(case):
+    # the Enhancer at half resolution (24x32) and s2 resized back up, in
+    # highest mode: the same tolerance as the full-resolution comparison
+    nv, rv, frames, carry, flags = case
+    jc = {k: jnp.asarray(v) for k, v in carry.items()}
+    (jH2, jH3, js3), _ = jax_predict_chunk(nv, rv, jnp.asarray(frames), jc, jnp.asarray(flags), enh_scale=2, **KW)
+    model = build_model(from_jax_variables(nv, rv), device="cpu", precision="highest")
+    (H2, H3, s3), _ = predict_chunk(model, frames, carry, flags, enh_scale=2, **KW)
+    for got, ref in [(H2, jH2), (H3, jH3), (s3, js3)]:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL["highest"][0], rtol=0)
+    (full, _, _), _ = predict_chunk(model, frames, carry, flags, **KW)
+    assert float((full - H2).abs().max()) > 1e-3  # the half-resolution Enhancer is live
+    # a frame that does not divide by enh_scale runs at full resolution, with a warning
+    with pytest.warns(UserWarning, match="not divisible"):
+        (odd, _, _), _ = predict_chunk(model, frames[:1], carry, flags[:1], enh_scale=5, **KW)
+    torch.testing.assert_close(odd, full[:1], rtol=0, atol=0)

@@ -1,4 +1,5 @@
-"""Weights: JAX parameter trees to the reference's PyTorch state dict.
+"""Weights: ``.pt`` checkpoints, and JAX parameter trees to the reference's
+PyTorch state dict.
 
 ``from_jax_variables`` is the port's copy of
 ``zero_tig_tpu/core/checkpoint.py::export_torch_state_dict`` (:211-301): it
@@ -6,10 +7,17 @@ turns the JAX package's parameter trees (numpy arrays, HWIO kernels) into
 the reference's key names and OIHW weights, with the ``enhance.blocks.{0,1,2}``
 aliases of the shared block and both names of each RAFT ``norm3``. A real
 reference ``.pt`` has the same keys, so it loads with ``load_state_dict``.
+
+``load_checkpoint`` / ``save_pt`` / ``merge`` are the ``.pt`` side of
+``load_torch_checkpoint`` (:201-209), ``save_torch_pt`` (:317-325) and
+``cli/common.py::_merge`` (:114-125): the ``.pt`` is the interchange format
+both packages read and write (the JAX package's ``.msgpack`` twins are
+flax's format and have no counterpart here).
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any
 
@@ -107,3 +115,62 @@ def raft_path_to_torch(path: tuple[str, ...], collection: str) -> str:
         else:
             segs.append(part)
     return ".".join(segs) + "." + leaf_map[leaf]
+
+
+_NET_PREFIXES = ("enhance.", "denoise_1.", "denoise_2.")
+_RAFT_NETS = ("fnet.", "cnet.", "update_block.")
+
+
+def load_checkpoint(path: str | os.PathLike) -> tuple[dict | None, dict | None]:
+    """A reference, JAX-exported or port ``.pt`` -> (network entries, ``raft.*``
+    entries), each None where the file holds none. Unwraps a ``"state_dict"``
+    wrapper and DataParallel's ``module.`` prefix; a RAFT-only file (keys
+    ``fnet.*``, ``cnet.*``, ``update_block.*``, as ``raft-sintel.pth``) gets the
+    ``raft.`` prefix; other keys are dropped (key-intersection semantics)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    net: dict = {}
+    raft: dict = {}
+    for key, value in sd.items():
+        k = key.removeprefix("module.")
+        if k.startswith(_NET_PREFIXES):
+            net[k] = value
+        elif k.startswith("raft."):
+            raft[k] = value
+        elif k.startswith(_RAFT_NETS):
+            raft["raft." + k] = value
+    return net or None, raft or None
+
+
+def state_dict_for_save(model) -> dict:
+    """``model``'s weights under the keys ``from_jax_variables`` produces, on
+    the CPU: the reference's names with every alias, RAFT's BatchNorm step
+    counters left out (the JAX export has none)."""
+    return {
+        k: v.detach().cpu().clone()
+        for k, v in model.state_dict().items()
+        if not (k.startswith("raft.") and k.endswith("num_batches_tracked"))
+    }
+
+
+def save_pt(path: str | os.PathLike, model) -> None:
+    """Write ``model``'s weights as a reference-loadable ``.pt``."""
+    torch.save(state_dict_for_save(model), path)
+
+
+def merge(base: dict, override: dict | None) -> dict:
+    """``base`` with every key it shares with ``override`` taken from
+    ``override``; keys only in ``override`` are ignored (the reference's
+    partial-load semantics, cli/common.py:114-125). The aliases then follow
+    the names the JAX package reads: ``enhance.conv.*`` for the shared
+    Enhancer block, ``downsample.1`` for a RAFT ``norm3``."""
+    if not override:
+        return dict(base)
+    out = {k: (override[k] if k in override else v) for k, v in base.items()}
+    for k in out:
+        m = re.match(r"^enhance\.blocks\.\d+\.(.*)$", k)
+        src = "enhance.conv." + m.group(1) if m else k.replace(".norm3.", ".downsample.1.")
+        if src != k and src in out:
+            out[k] = out[src]
+    return out

@@ -1,14 +1,21 @@
-"""The run configuration, under the JAX package's field names and defaults.
+"""The run configuration and its command-line flags, under the JAX package's
+field names and defaults.
 
-Port of ``zero_tig_tpu/core/config.py`` (:17-73; reference train.py:15-27,
-model/model.py, loss.py). The TPU's device knobs (mesh and spatial-band
-sizes, prefetch depth, compute dtype) have no counterpart here; the
-precision mode sets the dtype. The CLIs that read these fields as flags
-come in a later slice.
+Port of ``zero_tig_tpu/core/config.py`` (:17-92; reference train.py:15-27,
+model/model.py, loss.py): every field, the TPU knobs included, so a
+reference or JAX command line parses unchanged. Values the port cannot
+honour yet raise ``NotImplementedError`` when the ``Config`` is made:
+``mesh_data`` / ``mesh_spatial`` above 1 (ROADMAP queue 1 item 9,
+multi-device) and ``spatial_bands`` above 1 (item 8, banded training).
+``compute_dtype`` is read by nothing, as in the JAX package: the precision
+mode sets the dtype. ``prefetch_depth`` sets the depth of
+``data.prefetch``'s staging queue.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -32,7 +39,7 @@ class Config:
     enhancer_channels: int = 64
     denoise_channels: int = 48
     raft_iters: int = 12
-    enh_scale: int = 1
+    enh_scale: int = 1  # inference: the Enhancer at 1/enh_scale (models/network.py)
     corr_levels: int = 4
     corr_radius: int = 4
 
@@ -46,10 +53,29 @@ class Config:
     frame_width: int = 1920
     frame_height: int = 1080
 
-    raft_weights: str | None = None
-    resume: str | None = None
+    # knobs with no reference equivalent
+    raft_weights: str | None = None  # a RAFT checkpoint that overrides model_pretrain's
+    resume: str | None = None  # a full-train-state checkpoint, or "auto"
     precision: str = "highest"  # "highest" (f32) | "fast" (bf16 operands, f32 sums)
+    compute_dtype: str = "float32"
+    mesh_data: int = 1
+    mesh_spatial: int = 1
+    prefetch_depth: int = 2  # chunks staged ahead of the consumer
     chunk: int = 1  # frames per train_chunk / predict_chunk call
+    spatial_bands: int = 1
+    spatial_halo: int = 32
+
+    def __post_init__(self) -> None:
+        if self.mesh_data > 1 or self.mesh_spatial > 1:
+            raise NotImplementedError(
+                f"mesh_data={self.mesh_data}, mesh_spatial={self.mesh_spatial}: multi-device runs "
+                "are not ported yet (ROADMAP.md queue 1 item 9)"
+            )
+        if self.spatial_bands > 1:
+            raise NotImplementedError(
+                f"spatial_bands={self.spatial_bands}: banded training is not ported yet "
+                "(ROADMAP.md queue 1 item 8)"
+            )
 
     @property
     def is_wb(self) -> bool:
@@ -59,3 +85,17 @@ class Config:
     @property
     def frame_size(self) -> tuple[int, int]:
         return (self.frame_height, self.frame_width)
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """Register every Config field as a flag of the same name and default."""
+    for f in dataclasses.fields(Config):
+        typ = {"int": int, "float": float}.get(str(f.type), str)
+        if "str | None" in str(f.type):
+            typ = str
+        parser.add_argument("--" + f.name, type=typ, default=f.default)
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vars(args).items() if k in names})

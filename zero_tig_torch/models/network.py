@@ -15,6 +15,7 @@ zeroed for the Enhancer and replaced by H2 for Denoise_2.
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -96,9 +97,15 @@ def forward_inference(
     *,
     of_scale: int = 3,
     raft_iters: int = 12,
+    enh_scale: int = 1,
 ) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], dict]:
     """One frame (B, H, W, 3) f32 in [0, 1] -> ((H2, H3, s3), new_carry),
-    all f32 (B, H, W, 3). is_new_seq: bool tensor, scalar or (B,)."""
+    all f32 (B, H, W, 3). is_new_seq: bool tensor, scalar or (B,).
+
+    enh_scale > 1 runs the Enhancer at 1/enh_scale of the frame (a bilinear
+    resize of its inputs) and resizes s2 back up, where the frame divides
+    by it; elsewhere it warns and runs at full resolution (JAX :713-729).
+    The denoisers always run at full resolution."""
     if not model.prepared:
         model.prepare()
     with numerics(model.precision):
@@ -112,7 +119,7 @@ def forward_inference(
         new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
         w6 = torch.where(new, torch.zeros_like(w6), w6)
 
-        s2 = model.enhance([w6, L2])
+        s2 = _enhance(model, w6, L2, enh_scale)
         H2 = torch.clamp(inp / s2, EPS, 1.0)
         # new-sequence quirk (model/model.py:330-332): warped previous := H2
         w6 = torch.where(new, torch.cat([H2, H2], dim=-1), w6).contiguous()
@@ -121,6 +128,25 @@ def forward_inference(
     H3 = H5[..., :3].float().contiguous()
     s3 = H5[..., 3:].float().contiguous()
     return (H2.float(), H3, s3), {"last_H3": H3, "last_s3": s3}
+
+
+def _enhance(model: ZeroTIG, w6: torch.Tensor, L2: torch.Tensor, enh_scale: int) -> torch.Tensor:
+    h, w = L2.shape[1], L2.shape[2]
+    if enh_scale > 1 and (h % enh_scale or w % enh_scale):
+        warnings.warn(
+            f"enh_scale={enh_scale} requested but frame {h}x{w} is not "
+            f"divisible by it; running the exact full-resolution enhancer "
+            f"instead (the benchmark point you measure is NOT the half-res "
+            f"one)",
+            stacklevel=3,
+        )
+    if enh_scale <= 1 or h % enh_scale or w % enh_scale:
+        return model.enhance([w6, L2])
+    # the resize is per channel, so the two parts resize apart and stay
+    # two inputs of the first launch
+    small = (h // enh_scale, w // enh_scale)
+    s2 = model.enhance([resize_bilinear(w6, small), resize_bilinear(L2, small)])
+    return resize_bilinear(s2, (h, w))
 
 
 class TrainOutputs(NamedTuple):

@@ -59,12 +59,13 @@ def predict_step(
     *,
     of_scale: int = 3,
     raft_iters: int = 12,
+    enh_scale: int = 1,
 ) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], dict]:
     """One frame (B, H, W, 3): ((H2, H3, s3), new_carry)."""
     dev = model.device
     return forward_inference(
         model, _norm_frames(frame, dev), _carry_on(carry, dev), torch.as_tensor(is_new_seq, device=dev),
-        of_scale=of_scale, raft_iters=raft_iters,
+        of_scale=of_scale, raft_iters=raft_iters, enh_scale=enh_scale,
     )
 
 
@@ -77,6 +78,7 @@ def predict_chunk(
     *,
     of_scale: int = 3,
     raft_iters: int = 12,
+    enh_scale: int = 1,
     emit: str = "f32",
 ):
     """K frames (K, B, H, W, 3); is_new_seq (K,) or (K, B).
@@ -93,6 +95,7 @@ def predict_chunk(
     for k in range(frames.shape[0]):
         (H2, H3, s3), carry = forward_inference(
             model, frames[k], carry, flags[k], of_scale=of_scale, raft_iters=raft_iters,
+            enh_scale=enh_scale,
         )
         outs.append((_quantize_u8(H2), _quantize_u8(H3)) if emit == "u8" else (H2, H3, s3))
     return tuple(torch.stack(s) for s in zip(*outs)), carry
