@@ -70,7 +70,25 @@ zero_tig_torch/csrc from the checkout, then:
      which must start at epoch 1; evals with weights_1.pt on 2 frames
      (Metrics.json with its 6 keys, finite PSNR and SSIM, LPIPS null). Each
      CLI run's kernel launches are counted from 0 and must be those of its
-     frames.
+     frames;
+  9. drives the serve daemon (python -m zero_tig_torch.cli.serve) in this
+     process on 2 scenes x 6 frames of the fixture at 1080p, fast, --chunk 4
+     (one chunk of 4 and 2 single frames a scene), with a STOP written after
+     the last output: its PNGs must equal predict_chunk(emit="u8") and
+     predict_step on the same frames in the same grouping byte for byte,
+     its manifest the frames' flags, its launches per frame phase 3's; a
+     second run on the served inbox must serve nothing; prints ms/frame at
+     steady state from the manifest's stamps and peak device memory;
+ 10. drives banded training (pipeline/spatial.py) at 1080p: 4 bands x halo
+     32 against train_step from one state and frame, in each precision and
+     BatchNorm schedule (losses, gradients, running statistics, and the
+     flow phase's launches, which must be phase 7's per frame), then
+     ms/frame and peak device memory for 1, 2 and 4 bands in each, and a
+     trace of one highest-mode step on running statistics by 1 and 2 bands.
+
+Before phase 2 it prints one line on whether the native frame pipeline
+(zero_tig_torch/native/frameio.cc, libpng and libjpeg) builds and loads;
+that line is information, and no phase depends on it.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel numbers. With --out DIR, the details also go to
@@ -93,6 +111,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -104,20 +123,31 @@ import torch.nn.functional as F
 from zero_tig_torch import native
 from zero_tig_torch.cli import evals as cli_evals
 from zero_tig_torch.cli import predict as cli_predict
+from zero_tig_torch.cli import serve as cli_serve
 from zero_tig_torch.cli import train as cli_train
 from zero_tig_torch.core import precision
 from zero_tig_torch.core.checkpoint import save_pt
 from zero_tig_torch.core.config import Config
 from zero_tig_torch.data import create_dataset, make_rlv_fixture
 from zero_tig_torch.kernels import build
+from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
 from zero_tig_torch.models import build_model, init_random_state_dict
-from zero_tig_torch.models.network import reinit_enhancer
+from zero_tig_torch.models.network import forward_train, reinit_enhancer
+from zero_tig_torch.native import frameio
 from zero_tig_torch.models.raft.update import update_core
 from zero_tig_torch.ops import gru
 from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
 from zero_tig_torch.ops.equalize import equalize01, equalize01_reference, equalize_u8, equalize_u8_reference
 from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference, k1_plan, launch_k1
-from zero_tig_torch.pipeline.steps import init_carry, init_train_state, predict_chunk, train_chunk
+from zero_tig_torch.pipeline.spatial import spatial_loss_and_grads, train_step_spatial
+from zero_tig_torch.pipeline.steps import (
+    init_carry,
+    init_train_state,
+    predict_chunk,
+    predict_step,
+    train_chunk,
+    train_step,
+)
 
 H, W, OF_SCALE, ITERS, CHUNK = 1080, 1920, 3, 12, 8
 HR, WR = 45, 80  # RAFT grid: (1080/3, 1920/3) padded to /8, over 8
@@ -1217,6 +1247,242 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
     report["cli"] = out
 
 
+SERVE_SCENES, SERVE_FRAMES, SERVE_CHUNK = ("S01", "S02"), 6, 4  # 4 in one chunk, 2 frame by frame, a scene
+
+
+def serve_reference(model, frames, flags):
+    """What the daemon must write for one scene, as uint8 (H2, H3): a
+    settled backlog of SERVE_FRAMES runs as one predict_chunk(emit="u8") of
+    SERVE_CHUNK frames, then predict_step frame by frame, the carry threaded
+    through; the per-frame outputs quantised with the PNG writer's formula."""
+    carry = init_carry(model, (1, H, W, 3))
+    kw = dict(of_scale=OF_SCALE, raft_iters=ITERS)
+    (h2, h3), carry = predict_chunk(model, frames[:SERVE_CHUNK], carry, flags[:SERVE_CHUNK], emit="u8", **kw)
+    h2s, h3s = list(h2[:, 0].cpu().numpy()), list(h3[:, 0].cpu().numpy())
+    for k in range(SERVE_CHUNK, len(frames)):
+        (H2, H3, _), carry = predict_step(model, frames[k], carry, bool(flags[k]), **kw)
+        h2s.append(to_u8(H2[0]).cpu().numpy())
+        h3s.append(to_u8(H3[0]).cpu().numpy())
+    return h2s, h3s
+
+
+def phase9_serve(sd, report, smi, main_ms: float) -> None:
+    """The inbox daemon at 1080p, in this process: 2 scenes of 6 frames."""
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="zt_serve_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        fx = make_rlv_fixture(str(tmp / "rlv"), scenes=SERVE_SCENES, frames_per_scene=SERVE_FRAMES,
+                              size=(W, H), occluder=True)
+        pt = tmp / "seeded.pt"
+        save_pt(pt, build_model(sd, device="cpu", precision="highest"))
+        inbox, save = Path(fx) / "input", tmp / "served"
+        recs = list(create_dataset("RLV", fx, "test", size=(W, H)).iter_u8())
+        if len(recs) != len(SERVE_SCENES) * SERVE_FRAMES:
+            fail(f"the serve fixture holds {len(recs)} frames")
+        print(f"serve fixture: {len(SERVE_SCENES)} scenes x {SERVE_FRAMES} frames of {W}x{H} and the seeded .pt, "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        fast = build_model(sd, device="cuda", precision="fast")
+        frames = torch.from_numpy(np.stack([r.image for r in recs])[:, None]).cuda()
+        flags = torch.tensor([r.is_new_seq for r in recs])
+        ref_h2, ref_h3 = [], []
+        for i in range(0, len(recs), SERVE_FRAMES):
+            h2, h3 = serve_reference(fast, frames[i:i + SERVE_FRAMES], flags[i:i + SERVE_FRAMES])
+            ref_h2 += h2
+            ref_h3 += h3
+        del fast, frames
+        argv = CLI_FLAGS + ["--lowlight_images_path", str(inbox), "--model_pretrain", str(pt), "--save", str(save),
+                            "--precision", "fast", "--chunk", str(SERVE_CHUNK), "--serve_settle_sec", "0",
+                            "--serve_poll_sec", "0.05", "--serve_max_idle_sec", "600"]
+        manifest = save / "manifest.jsonl"
+
+        def stop_after_last_output():
+            while not manifest.exists() or len(manifest.read_text().splitlines()) < len(recs):
+                time.sleep(0.05)
+            (inbox / "STOP").touch()
+
+        stopper = threading.Thread(target=stop_after_last_output, daemon=True)
+        stopper.start()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        secs, _ = run_cli("serve", cli_serve.main, argv)
+        counts = dict(build.COUNTS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stopper.join(timeout=5)
+        expect_counts("serve daemon", counts, len(recs))
+        check_predict_pngs("serve daemon", save, recs, ref_h2, ref_h3)
+        lines = [json.loads(line) for line in manifest.read_text().splitlines()]
+        want = [(Path(r.path).parts[-3], int(r.name), bool(f)) for r, f in zip(recs, flags)]
+        got = [(Path(rec["scene"]).parts[-2], rec["index"], rec["new_seq"]) for rec in lines]
+        if got != want:
+            fail(f"serve manifest: {got} != {want}")
+        # steady state: from the end of the first chunk to the last frame
+        stamps = sorted(rec["t"] for rec in lines)
+        steady = (stamps[-1] - stamps[SERVE_CHUNK - 1]) * 1e3 / (len(stamps) - SERVE_CHUNK)
+        (inbox / "STOP").unlink()
+        again, _ = run_cli("serve again", cli_serve.main,
+                           argv[:-1] + ["0.5"])  # nothing to serve: out after 0.5 s idle
+        if len(manifest.read_text().splitlines()) != len(recs):
+            fail("serve again: the manifest grew on an inbox already served")
+        per_frame = {k: v / len(recs) for k, v in counts.items()}
+        print(f"serve daemon 1080p fast --chunk {SERVE_CHUNK}, {len(recs)} frames: {steady:.3f} ms/frame at steady "
+              f"state (manifest stamps, last {len(stamps) - SERVE_CHUNK} frames); {secs * 1e3 / len(recs):.3f} ms/frame "
+              f"wall with set-up; launches per frame {per_frame} (phase 3's); peak device memory {peak:.3f} GB; "
+              f"phase 3's predict_chunk {main_ms:.3f} ms/frame; a second run on the served inbox served 0 frames "
+              f"({again:.1f} s) on {smi}", flush=True)
+        out = {"steady_ms_per_frame": steady, "wall_ms_per_frame": secs * 1e3 / len(recs), "frames": len(recs),
+               "launches": counts, "peak_mem_gb": peak, "second_run_s": again}
+    report["serve"] = out
+
+
+BAND_CASES = (1, 2, 4)  # bands; 1 is train_step itself
+BAND_HALO = 32
+
+
+def _grads(model) -> dict:
+    out = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def phase10_banded(sd, report, smi) -> None:
+    """Banded training at 1080p: train_step_spatial against train_step."""
+    g = torch.Generator().manual_seed(SEED)
+    frame = (torch.rand(1, H, W, 3, generator=g) * 0.25).cuda()
+    carry = {"last_H3": torch.rand(1, H, W, 3, generator=g).cuda() * 0.5,
+             "last_s3": torch.rand(1, H, W, 3, generator=g).cuda() * 0.5 + 0.25}
+    kw = dict(of_scale=OF_SCALE, raft_iters=ITERS)
+    new = torch.tensor(False)
+    # (1) losses and gradients, from one state and frame: the whole frame,
+    # then 4 bands. Highest: f32 with TF32 off. The loss is held to the CPU
+    # test's 3e-6 relative (tests/test_torch_spatial.py); each gradient to
+    # 1e-4 of its leaf's largest plus 1e-4 of itself, 5x the CPU test's
+    # 2e-5: with the Enhancer's reference init and batch statistics, the
+    # shared block conv's gradient is a difference of the loss path's and
+    # the statistics' terms that nearly cancel, and measured 3.2e-5 on the
+    # CPU at 96x64 (4 bands, halo 24); on the card cuDNN picks each
+    # convolution's algorithm by shape, so a band and the frame also sum in
+    # other orders. Fast: bf16 activations, where one rounding apart moves a
+    # value by 2^-8: losses within 1e-3, each leaf's gradient cosine >= 0.99.
+    limits = {"highest": (3e-6, 1e-4, 1e-4), "fast": (1e-3, None, 0.0)}
+    agree = {}
+    for mode in ("highest", "fast"):
+        for bn_train in (True, False):
+            state = init_train_state(Config(precision=mode, **kw), sd, (1, H, W, 3), device="cuda")
+            reinit_enhancer(state.model, torch.Generator(device="cuda").manual_seed(SEED))
+            state = state._replace(carry={k: v.clone() for k, v in carry.items()})
+            model, bn = state.model, state.model.enhance.conv[1]
+            stats = (bn.running_mean.clone(), bn.running_var.clone())
+            with precision.numerics(mode):
+                outs, _ = forward_train(model, frame, carry, new.cuda(), bn_train=bn_train, **kw)
+                loss_m = zero_tig_loss(frame, outs)
+                loss_m.backward()
+            del outs
+            g_m = _grads(model)
+            moved_m = (bn.running_mean.clone(), bn.running_var.clone())
+            bn.running_mean.copy_(stats[0])
+            bn.running_var.copy_(stats[1])
+            torch.cuda.synchronize()
+            build.reset_counts()
+            loss_b, _ = spatial_loss_and_grads(state, frame, new, bands=4, halo=BAND_HALO, bn_train=bn_train, **kw)
+            torch.cuda.synchronize()
+            counts = dict(build.COUNTS)
+            g_b = _grads(model)
+            want = {"fused_conv": K1_PER_TRAIN_FRAME, "gru": GRU_PER_FRAME, "equalize_u8": EQ_PER_FRAME,
+                    "conv3x3_bf16": 0}
+            if counts != want:
+                fail(f"banded training launches {counts} != phase 7's per frame {want}")
+            loss_err = abs(float(loss_b) / float(loss_m.detach()) - 1)
+            l_tol, g_tol, rtol = limits[mode]
+            worst, worst_leaf, cos_min = 0.0, "", 1.0
+            for name, gm in g_m.items():
+                gb = g_b[name]
+                if name == "enhance.conv.0.bias" and bn_train:
+                    continue  # exactly 0 under batch statistics: both sides hold cancellation noise
+                scale = max(float(gm.abs().max()), 1e-3)
+                err = float(((gb - gm).abs() - rtol * gm.abs()).max()) / scale
+                if err > worst:
+                    worst, worst_leaf = err, name
+                cos_min = min(cos_min, float(torch.dot(gb.flatten(), gm.flatten()) / (gb.norm() * gm.norm() + 1e-30)))
+            # running statistics: the CPU test's atol 2e-4 + rtol 5e-3 under
+            # batch statistics; without them neither side may move them at all
+            s_atol, s_rtol = (2e-4, 5e-3) if bn_train else (0.0, 0.0)
+            stat_err = max(float((bn.running_mean - moved_m[0]).abs().max()),
+                           float((bn.running_var - moved_m[1]).abs().max()))
+            stat_ok = all(bool(((b - m).abs() <= s_atol + s_rtol * m.abs()).all())
+                          for b, m in ((bn.running_mean, moved_m[0]), (bn.running_var, moved_m[1])))
+            ok = loss_err <= l_tol and (worst <= g_tol if g_tol else cos_min >= 0.99) and stat_ok
+            print(f"banded 4 x halo {BAND_HALO} against the whole 1080p frame, {mode} bn_train={bn_train}: loss "
+                  f"{float(loss_b):.6f} / {float(loss_m.detach()):.6f} rel {loss_err:.2e} (tol {l_tol:g}); gradients: worst "
+                  f"|banded - whole| beyond {rtol} of itself {worst:.2e} of the leaf's largest ({worst_leaf}; tol {g_tol}), "
+                  f"min cosine "
+                  f"{cos_min:.6f}; running statistics max_abs_err {stat_err:.2e} (tol atol {s_atol:g} + rtol "
+                  f"{s_rtol:g}); launches {counts} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"banded and whole-frame training disagree ({mode}, bn_train={bn_train})")
+            agree[f"{mode}_bn{int(bn_train)}"] = {"loss_rel_err": loss_err, "grad_excess": worst, "worst_leaf": worst_leaf,
+                                                  "grad_min_cosine": cos_min, "running_stats_err": stat_err,
+                                                  "launches": counts}
+            del state, model, g_m, g_b
+    # (2) ms/frame and peak memory for bands 1 (train_step), 2 and 4
+    timing = {}
+    for mode in ("highest", "fast"):
+        for bn_train in (True, False):
+            for bands in BAND_CASES:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                state = init_train_state(Config(precision=mode, **kw), sd, (1, H, W, 3), device="cuda")
+                reinit_enhancer(state.model, torch.Generator(device="cuda").manual_seed(SEED))
+
+                def step(st):
+                    if bands == 1:
+                        return train_step(st, frame, new, bn_train=bn_train, **kw)
+                    return train_step_spatial(st, frame, new, bands=bands, halo=BAND_HALO, bn_train=bn_train, **kw)
+
+                state, _ = step(state)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    state, loss = step(state)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / 2
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                if not math.isfinite(float(loss)):
+                    fail(f"banded training loss is not finite ({mode}, {bands} bands)")
+                timing[f"{mode}_bn{int(bn_train)}_bands{bands}"] = {"ms_per_frame": ms, "peak_mem_gb": peak}
+                if mode == "highest" and not bn_train and bands < 4:
+                    # where the whole frame's step and the 2-band one spend their device time
+                    timing[f"{mode}_bn0_bands{bands}"]["trace"] = trace_path(
+                        lambda: step(state), 1, f"training highest, {bands} band(s)", {MMA: 0, FMA: K1_PER_TRAIN_FRAME})
+                del state
+        print(f"training 1080p {mode}, ms/frame (peak device GB) by bands "
+              + "; ".join(f"bn_train={bt}: " + ", ".join(
+                  f"{b}: {timing[f'{mode}_bn{int(bt)}_bands{b}']['ms_per_frame']:.3f} "
+                  f"({timing[f'{mode}_bn{int(bt)}_bands{b}']['peak_mem_gb']:.2f})" for b in BAND_CASES)
+                  for bt in (True, False))
+              + f" (1 = train_step; halo {BAND_HALO}) on {smi}", flush=True)
+    report["banded"] = {"agreement": agree, "timing": timing}
+
+
+def frameio_build_line() -> str:
+    """One line of information, not a phase: whether the native frame
+    pipeline (host C++, libpng and libjpeg) builds where the script runs."""
+    t0 = time.perf_counter()
+    try:
+        frameio.library()
+        line = f"native frame pipeline (frameio.cc) built and loaded in {time.perf_counter() - t0:.2f} s"
+    except (RuntimeError, OSError) as e:  # the compiler's message, or the loader's (a missing libpng)
+        first = next((ln for ln in str(e).splitlines()[1:] if "error" in ln), str(e).splitlines()[0])
+        line = f"native frame pipeline (frameio.cc) does not build or load here: {first.strip()}"
+    print(line, flush=True)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Build the port's kernels and drive its main path on one card.")
     ap.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json (details)")
@@ -1232,12 +1498,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    frameio_line = frameio_build_line()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sd = init_random_state_dict(SEED)
     fast = build_model(sd, device="cuda", precision="fast")
     highest = build_model(sd, device="cuda", precision="highest")
-    report: dict = {"device": smi, "build_s": build.BUILD_SECONDS}
+    report: dict = {"device": smi, "build_s": build.BUILD_SECONDS, "frameio": frameio_line}
 
     with precision.numerics("highest"):  # f32 twins hold f32 sums, not TF32
         errs = phase2_kernels(fast, highest, gen, report)
@@ -1250,6 +1517,12 @@ def main() -> int:
     del fast, highest
     phase7_training(sd, report, smi)
     phase8_cli(sd, report, smi, report["main_path"]["ms_per_frame"])
+    for label, phase in (("9", lambda: phase9_serve(sd, report, smi, report["main_path"]["ms_per_frame"])),
+                         ("10", lambda: phase10_banded(sd, report, smi))):
+        t0 = time.perf_counter()
+        phase()
+        report[f"phase{label}_s"] = time.perf_counter() - t0
+        print(f"phase {label} took {report[f'phase{label}_s']:.1f} s", flush=True)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -31,6 +31,10 @@ from zero_tig_torch.core.train_ckpt import latest_checkpoint, restore_train_stat
 from zero_tig_torch.models import build_model, init_random_state_dict, init_state_dict
 from zero_tig_torch.pipeline.steps import init_train_state, train_chunk
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 H, W = 48, 64
 KW = dict(of_scale=2, raft_iters=2)
 
@@ -226,9 +230,14 @@ def test_config_matches_jax():
 @pytest.mark.parametrize("flag,value,item", [("mesh_data", 2, "item 9"), ("mesh_spatial", 4, "item 9"),
                                              ("spatial_bands", 4, "item 8")])
 def test_unsupported_values_raise(flag, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.Config(**{flag: value})
     parser = argparse.ArgumentParser()
     tconfig.add_config_args(parser)
+    if item == "item 8":
+        # banded training is ported now: the value is taken as it is
+        assert getattr(tconfig.Config(**{flag: value}), flag) == value
+        assert getattr(tconfig.config_from_args(parser.parse_args([f"--{flag}", str(value)])), flag) == value
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        tconfig.Config(**{flag: value})
     with pytest.raises(NotImplementedError, match=item):
         tconfig.config_from_args(parser.parse_args([f"--{flag}", str(value)]))

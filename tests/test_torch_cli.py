@@ -33,6 +33,10 @@ from zero_tig_torch.cli import evals, predict, run_pipeline, train
 from zero_tig_torch.core.config import Config
 from zero_tig_torch.data import make_rlv_fixture
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(frame_width=64, frame_height=48, of_scale=2, raft_iters=2)
 FLOAT = r"-?\d+\.\d+"

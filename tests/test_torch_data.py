@@ -35,6 +35,10 @@ from zero_tig_torch.data import (
 from zero_tig_torch.eval import lpips as tlpips
 from zero_tig_torch.eval import metrics as tmetrics
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 SIZE = (64, 48)  # (W, H)
 
 

@@ -16,6 +16,10 @@ import torch
 from zero_tig_tpu.ops.equalize import equalize01 as jax_equalize01
 from zero_tig_torch.ops.equalize import equalize01, equalize01_reference
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 
 def _edges(rng, shape):
     """k / 255 and its f32 neighbours: the cast's truncation edges."""

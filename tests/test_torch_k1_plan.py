@@ -29,6 +29,10 @@ from zero_tig_torch.ops.fused_conv import (
     unpack_weights,
 )
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 BF16 = torch.bfloat16
 # the Enhancer's launches at enh_scale=2: its five layers at 540x960
 ENH_HALF = [(f"{la[0]}@540x960", *la[1:3], (540, 960), *la[4:]) for la in chip_smoke.K1_LAYERS if la[0].startswith("enh.")]

@@ -27,6 +27,10 @@ from zero_tig_torch.ops.conv3x3 import conv3x3_bf16
 from zero_tig_torch.ops.equalize import equalize_u8
 from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 BF16 = torch.bfloat16
 PACK_TOL = dict(atol=2e-2, rtol=2e-2)  # as tests/test_pack_conv.py: bf16 outputs
 

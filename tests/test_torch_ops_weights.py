@@ -30,6 +30,10 @@ from zero_tig_torch.ops.sampling import coords_grid
 from zero_tig_torch.ops.warp import warp_tensor
 from zero_tig_torch.pipeline.steps import init_carry
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 F32_TOL = dict(atol=1e-5, rtol=1e-5)  # f32 on both sides; sums in another order
 
@@ -109,9 +113,9 @@ def test_import_pulls_in_no_jax():
     # nor flax, OpenCV or Pillow: the machine with the card has none of them
     code = (
         "import sys, zero_tig_torch.pipeline.steps, zero_tig_torch.models, zero_tig_torch.data, zero_tig_torch.eval,"
-        " zero_tig_torch.core.train_ckpt, zero_tig_torch.native, chip_smoke;"
+        " zero_tig_torch.core.train_ckpt, zero_tig_torch.native, zero_tig_torch.native.frameio, chip_smoke;"
         "import zero_tig_torch.cli.train, zero_tig_torch.cli.predict, zero_tig_torch.cli.evals,"
-        " zero_tig_torch.cli.run_pipeline;"
+        " zero_tig_torch.cli.run_pipeline, zero_tig_torch.cli.serve, zero_tig_torch.pipeline.spatial;"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', 'PIL') or m.startswith(('jax.', 'flax.', 'zero_tig_tpu', 'cv2.', 'PIL.'))];"
         "assert not bad, bad"
     )
@@ -122,7 +126,7 @@ def test_import_pulls_in_no_jax():
 def test_port_sources_name_no_jax():
     files = list((REPO / "zero_tig_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     files += list((REPO / "zero_tig_torch" / "csrc").glob("*.cu*"))
-    files += [REPO / "zero_tig_torch" / "native" / "pngio.cpp"]
+    files += [REPO / "zero_tig_torch" / "native" / "pngio.cpp", REPO / "zero_tig_torch" / "native" / "frameio.cc"]
     for f in files:
         text = f.read_text()
         assert "zero_tig_tpu" not in text.replace("zero_tig_tpu/", ""), f

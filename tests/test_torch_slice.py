@@ -24,6 +24,10 @@ from zero_tig_torch.core.checkpoint import from_jax_variables
 from zero_tig_torch.models import build_model
 from zero_tig_torch.pipeline.steps import predict_chunk, predict_step
 
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
+
 H, W = 48, 64
 KW = dict(of_scale=2, raft_iters=3)
 # measured on this case: highest <= 8e-7 on H2/H3/s3 and u8 <= 1 (a value on

@@ -3,14 +3,13 @@ the JAX package's own training-test size (48x64, of_scale 2, 2 RAFT
 iterations): the same weights (JAX init, BatchNorm running statistics moved
 off (0, 1), through ``from_jax_variables``), frames and flags.
 
-Covered: the filters, the 17-term loss on one identical set of outputs, the
-step-0 gradient, ``train_chunk`` over 3 frames with a reset at frame 0 in
-both precisions and both BatchNorm schedules, ``reinit_enhancer`` and the
-kernels' weight snapshots after a step. In fast mode the JAX package takes
-its default packed-pair (xpack) training path.
+Covered: the step-0 gradient, ``train_chunk`` over 3 frames with a reset at
+frame 0 in both precisions and both BatchNorm schedules, and the kernels'
+weight snapshots after a step. In fast mode the JAX package takes its
+default packed-pair (xpack) training path. The filters, the loss and
+``reinit_enhancer`` are held in ``tests/test_torch_train_loss.py``.
 """
 
-import functools
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -25,15 +24,13 @@ from zero_tig_tpu.losses.zero_tig_loss import zero_tig_loss as jax_loss
 from zero_tig_tpu.models.network import forward_train as jax_forward_train
 from zero_tig_tpu.models.network import init_network_variables
 from zero_tig_tpu.models.raft.raft import init_raft_variables
-from zero_tig_tpu.ops import filters as jf
 from zero_tig_tpu.pipeline.steps import init_train_state as jax_init_train_state
 from zero_tig_tpu.pipeline.steps import train_chunk as jax_train_chunk
 from zero_tig_torch.core.checkpoint import from_jax_variables
 from zero_tig_torch.core.config import Config
 from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
-from zero_tig_torch.models import build_model, init_random_state_dict
-from zero_tig_torch.models.network import TrainOutputs, forward_train, reinit_enhancer
-from zero_tig_torch.ops import filters as tf
+from zero_tig_torch.models import build_model
+from zero_tig_torch.models.network import forward_train
 from zero_tig_torch.pipeline.steps import (
     eval_forward_step,
     init_train_state,
@@ -41,6 +38,10 @@ from zero_tig_torch.pipeline.steps import (
     train_chunk,
     train_step,
 )
+
+# Under pytest-xdist the workers share the host's cores with JAX's compiles:
+# one intra-op thread each spends no CPU time waiting on the others.
+torch.set_num_threads(1)
 
 H, W = 48, 64
 KW = dict(of_scale=2, raft_iters=2)
@@ -57,8 +58,7 @@ MODES = [(mode, bn_train) for mode in ("fast", "highest") for bn_train in (True,
 @pytest.fixture(scope="module")
 def jax_side():
     """Everything the JAX package computes for this file, made once: the
-    weights, and the reference runs of the loss, gradient and trajectory
-    tests. Each program is traced here, one after the other (the precision
+    weights, and the reference runs of the gradient and trajectory tests. Each program is traced here, one after the other (the precision
     mode is a global that tracing reads), and XLA compiles them side by side
     in a few threads, which takes a third of the time of compiling each
     inside its own test. The programs and their inputs are what the tests
@@ -94,11 +94,6 @@ def jax_side():
         precision.set_precision("highest")
         rv = _np_tree(rv_job.result()(key1))
 
-        # one identical set of outputs for the loss test: highest
-        # forward_train on frame 1 with a carried state
-        fwd_args = (nv, rv, jnp.asarray(frames[1]), jcarry, jnp.asarray(False))
-        fwd_job = pool.submit(jax.jit(functools.partial(jax_forward_train, **KW)).lower(*fwd_args).compile)
-
         # step 0 of a sequence (the warped state zeroed) for the gradient test
         def loss_fn(params):
             out, _, _ = jax_forward_train(
@@ -116,14 +111,13 @@ def jax_side():
             st = jax_init_train_state(JaxConfig(**KW), nv, frames[0].shape)
             st, losses = job.result()(st, rv, jnp.asarray(frames), jnp.asarray(FLAGS))
             chunks[mode, bn_train] = _np_tree((st.params, st.batch_stats, st.carry, losses))
-        outputs = _np_tree(fwd_job.result()(*fwd_args)[0])
         ref_loss, ref_grads = grad_job.result()(params0)
         grad = float(ref_loss), _np_tree(ref_grads)
     finally:
         precision.set_precision("highest")
         pool.shutdown()
         jax.clear_caches()
-    return {"case": (nv, rv, frames, carry), "chunks": chunks, "outputs": outputs, "grad": grad}
+    return {"case": (nv, rv, frames, carry), "chunks": chunks, "grad": grad}
 
 
 @pytest.fixture(scope="module")
@@ -137,58 +131,6 @@ def _sd(nv_params, nv_stats, rv=None):
 
 def _trained_keys(sd):
     return [k for k in sd if not k.startswith("raft.") and not k.endswith("num_batches_tracked")]
-
-
-# ---------------------------------------------------------------- filters
-
-
-@pytest.mark.parametrize("shape", [(1, 48, 64, 3), (2, 13, 17, 3)])
-def test_filters_match_jax(shape):
-    rng = np.random.default_rng(5)
-    x = rng.random(shape).astype(np.float32)
-    y = rng.random(shape).astype(np.float32)
-    jx, tx = jnp.asarray(x), torch.from_numpy(x)
-    np.testing.assert_array_equal(tf.gauss_kernel(21, 1.0), np.asarray(jf.gauss_kernel(21, 1.0)))
-    for got, ref in zip(tf.pair_downsampler(tx), jf.pair_downsampler(jx)):
-        assert got.shape == ref.shape  # floor on odd sizes
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-7)
-    # f32 windows summed in another order: measured <= 6.7e-7 (local_stddev)
-    for name, got, ref in [
-        ("blur", tf.blur(tx), jf.blur(jx)),
-        ("local_mean", tf.local_mean(tx), jf.local_mean(jx)),
-        ("local_stddev", tf.local_stddev(tx), jf.local_stddev(jx)),
-        ("avg_pool2d", tf.avg_pool2d(tx, 5, 1, 2), jf.avg_pool2d(jx, 5, 1, 2)),
-        ("local_variance", tf.calculate_local_variance(tx), jf.calculate_local_variance(jx)),
-    ]:
-        assert got.shape == ref.shape, name
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-6, rtol=1e-5, err_msg=name)
-    # a step function: equal wherever the similarity is not within rounding of 0.975
-    smooth = torch.from_numpy(x * 0.1 + y * 0.01)
-    for a, b in [(tx, torch.from_numpy(y)), (tx, smooth)]:
-        got = tf.texture_difference(a, b).numpy()
-        ref = np.asarray(jf.texture_difference(jnp.asarray(a.numpy()), jnp.asarray(b.numpy())))
-        assert got.shape == ref.shape == shape[:3] + (1,)
-        np.testing.assert_array_equal(got, ref)
-
-
-# ------------------------------------------------------------------- loss
-
-
-@pytest.fixture(scope="module")
-def jax_outputs(jax_side):
-    return jax_side["outputs"]
-
-
-@pytest.mark.parametrize("is_wb", [False, True])
-def test_loss_matches_jax_on_identical_outputs(case, jax_outputs, is_wb):
-    frame = case[2][1]
-    loss_fn = jax.jit(functools.partial(jax_loss, is_wb=is_wb))
-    ref = float(loss_fn(jnp.asarray(frame), jax.tree_util.tree_map(jnp.asarray, jax_outputs)))
-    outs = TrainOutputs(*(torch.from_numpy(np.array(v)) for v in jax_outputs[:23]))
-    got = float(zero_tig_loss(torch.from_numpy(frame), outs, is_wb=is_wb))
-    print(f"loss is_wb={is_wb}: {got} against {ref}, {abs(got / ref - 1):.2e} relative")
-    # f32 sums in another order; measured 6.5e-8 relative
-    np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
 def test_step0_gradient_matches_jax_value_and_grad(case, jax_side):
@@ -290,30 +232,6 @@ def _spread(sd, losses, carry, ref, ref_losses, ref_carry, params, stats) -> str
 
 
 # ------------------------------------------------------- init and snapshots
-
-
-def test_reinit_enhancer_statistics():
-    sd = init_random_state_dict(0)
-    model = build_model(sd, device="cpu", precision="highest")
-    reinit_enhancer(model, torch.Generator().manual_seed(3))
-    assert not model.prepared
-    enh = dict(model.enhance.named_parameters())
-    for name, p in enh.items():
-        v = p.detach().double()
-        if name.endswith("bias"):
-            assert torch.count_nonzero(v) == 0, name
-            continue
-        n, centre = v.numel(), 1.0 if p.dim() == 1 else 0.0
-        assert abs(float(v.mean()) - centre) < 4 * 0.02 / n**0.5, name
-        assert 0.02 * (1 - 4 / (2 * n) ** 0.5) < float(v.std()) < 0.02 * (1 + 4 / (2 * n) ** 0.5), name
-    out = model.state_dict()
-    for alias in ("enhance.blocks.0", "enhance.blocks.2"):
-        assert torch.equal(out[f"{alias}.0.weight"], out["enhance.conv.0.weight"])
-    for k in ("running_mean", "running_var"):
-        assert torch.equal(out[f"enhance.conv.1.{k}"], sd[f"enhance.conv.1.{k}"])
-    again = build_model(sd, device="cpu", precision="highest")
-    reinit_enhancer(again, torch.Generator().manual_seed(3))
-    assert all(torch.equal(a, b) for a, b in zip(model.enhance.parameters(), again.enhance.parameters()))
 
 
 def test_second_step_and_inference_see_the_trained_weights(case):

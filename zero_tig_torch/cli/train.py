@@ -11,7 +11,9 @@ flags and artifacts). Artifacts per run (train.py:33-36, :135, :149-152):
 
 ``--resume auto`` searches the new run's ``model_epochs/``, as the JAX CLI
 does (:76-86 with ``create_exp_dir`` at :42), so it finds nothing; pass the
-path of a ``state_<e>.pt``.
+path of a ``state_<e>.pt``. ``--spatial_bands N`` trains each frame in N
+bands of rows (``pipeline/spatial.py``) with ``--spatial_halo`` rows around
+each, frame by frame (``--chunk`` does not apply).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..core.device import resolve_device
 from ..core.train_ckpt import latest_checkpoint, restore_train_state, save_train_state
 from ..data import create_dataset, device_prefetch
 from ..data.prefetch import ChunkRecord, chunk_prefetch
+from ..pipeline.spatial import train_step_spatial
 from ..pipeline.steps import eval_forward_step, init_carry, init_train_state, train_chunk, train_step
 from .common import count_parameters_in_mb, create_exp_dir, load_state_dict, setup_logging, write_png
 
@@ -76,10 +79,20 @@ def run_training(config: Config, *, device=None) -> str:
                 total_step += 1
                 log.info("train-epoch %03d %03d %f", epoch, len(losses) - 1, losses[-1])
 
-        # --chunk K runs K sequential frames per train_chunk call; the trailing
-        # partial group takes the per-frame step, so no padding frame ever
-        # advances the optimizer
-        for item in chunk_prefetch(train_ds.iter_u8(), config.chunk, depth=config.prefetch_depth, device=device):
+        if config.spatial_bands > 1:
+            # banded training, frame by frame: the gradients of each band of
+            # rows accumulate before one optimizer step (JAX :142-164)
+            for rec in device_prefetch(train_ds.iter_u8(), depth=config.prefetch_depth, device=device):
+                state, loss = train_step_spatial(state, rec.image, rec.is_new_seq, bands=config.spatial_bands,
+                                                 halo=config.spatial_halo, bn_train=bn_train, **step_kwargs)
+                log_losses([loss.item()])
+            stream = ()
+        else:
+            # --chunk K runs K sequential frames per train_chunk call; the
+            # trailing partial group takes the per-frame step, so no padding
+            # frame ever advances the optimizer
+            stream = chunk_prefetch(train_ds.iter_u8(), config.chunk, depth=config.prefetch_depth, device=device)
+        for item in stream:
             if isinstance(item, ChunkRecord):
                 state, k_losses = train_chunk(state, item.images, item.flags, bn_train=bn_train, **step_kwargs)
                 log_losses(k_losses.tolist())

@@ -6,7 +6,8 @@ model/model.py, loss.py): every field, the TPU knobs included, so a
 reference or JAX command line parses unchanged. Values the port cannot
 honour yet raise ``NotImplementedError`` when the ``Config`` is made:
 ``mesh_data`` / ``mesh_spatial`` above 1 (ROADMAP queue 1 item 9,
-multi-device) and ``spatial_bands`` above 1 (item 8, banded training).
+multi-device). ``spatial_bands`` above 1 trains in bands of rows
+(``pipeline/spatial.py``), ``spatial_halo`` rows around each.
 ``compute_dtype`` is read by nothing, as in the JAX package: the precision
 mode sets the dtype. ``prefetch_depth`` sets the depth of
 ``data.prefetch``'s staging queue.
@@ -70,11 +71,6 @@ class Config:
             raise NotImplementedError(
                 f"mesh_data={self.mesh_data}, mesh_spatial={self.mesh_spatial}: multi-device runs "
                 "are not ported yet (ROADMAP.md queue 1 item 9)"
-            )
-        if self.spatial_bands > 1:
-            raise NotImplementedError(
-                f"spatial_bands={self.spatial_bands}: banded training is not ported yet "
-                "(ROADMAP.md queue 1 item 8)"
             )
 
     @property

@@ -14,9 +14,12 @@ broken ``DefaultDataset`` (multi_read_data.py:29-71).
 Frames decode through the port's own PNG codec (``native``); JPEG frames,
 and the reference's Pillow bicubic resize of a frame that is not at the
 target size (multi_read_data.py:127-132), go through Pillow, which is
-imported only then. The JAX package's native C++ pipeline
-(``ZERO_TIG_NATIVE_IO``) and its OpenCV opt-in (``ZERO_TIG_CV2_RESIZE``)
-have no counterpart.
+imported only then. ``ZERO_TIG_NATIVE_IO=1`` in the environment puts
+the native C++ frame pipeline (``native.frameio``: libpng and libjpeg,
+OpenCV's bicubic for off-size frames, threads decoding ahead) under
+``iter_u8`` and ``load_image``, as in the JAX package (:84-102, :168-180);
+where it cannot be built, the dataset raises. The JAX package's OpenCV
+opt-in (``ZERO_TIG_CV2_RESIZE``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Iterator
 import numpy as np
 
 from .. import native
+from ..native import frameio
 
 
 @dataclass
@@ -72,12 +76,15 @@ class FrameDataset:
 
     name = "generic"
 
-    def __init__(self, paths: list[str], *, size: tuple[int, int] = (1920, 1080)):  # (W, H)
+    def __init__(self, paths: list[str], *, size: tuple[int, int] = (1920, 1080)):
         if not paths:
             raise ValueError("dataset is empty")
         self.paths = paths
-        self.size = size
+        self.size = size  # (W, H)
         self._last_path = paths[0]  # persists across epochs (reference quirk)
+        self.native_io = os.environ.get("ZERO_TIG_NATIVE_IO", "0") == "1"
+        if self.native_io:
+            frameio.library()  # built here: a dataset that cannot read its frames fails at once
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -90,26 +97,38 @@ class FrameDataset:
         return img
 
     def load_image(self, path: str) -> np.ndarray:
+        if self.native_io:
+            return frameio.load_frame(path, *self.size)
         return self.load_image_u8(path).astype(np.float32) / 255.0
 
-    def _records(self, load) -> Iterator[FrameRecord]:
-        for path in self.paths:
+    def _records(self, images) -> Iterator[FrameRecord]:
+        for path, image in zip(self.paths, images):
             is_new = sequential_judgment(path, self._last_path)
             self._last_path = path
             yield FrameRecord(
-                image=load(path),
+                image=image,
                 name=os.path.splitext(os.path.basename(path))[0],
                 path=path,
                 is_new_seq=is_new,
             )
 
     def __iter__(self) -> Iterator[FrameRecord]:
-        return self._records(self.load_image)
+        return self._records(map(self.load_image, self.paths))
 
     def iter_u8(self) -> Iterator[FrameRecord]:
         """Like ``__iter__``, the images left uint8: the prefetcher ships them
-        so and normalises on the device."""
-        return self._records(self.load_image_u8)
+        so and normalises on the device. With native IO, the C++ pipeline
+        decodes ahead on the host's cores."""
+        if not self.native_io:
+            return self._records(map(self.load_image_u8, self.paths))
+        return self._native_records()
+
+    def _native_records(self) -> Iterator[FrameRecord]:
+        pipe = frameio.NativePipeline(self.paths, *self.size, threads=max(os.cpu_count() or 1, 1), out_u8=True)
+        try:
+            yield from self._records(pipe)
+        finally:
+            pipe.close()
 
 
 def _check_task(task: str) -> None:

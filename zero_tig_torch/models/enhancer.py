@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_conv import fused_conv, prepare_conv
-from .layers import EvalBatchNorm2d, batch_norm_train, clip, conv2d
+from .layers import EvalBatchNorm2d, batch_norm_train, batch_norm_with, clip, conv2d
 
 
 class Enhancer(nn.Module):
@@ -46,17 +46,26 @@ class Enhancer(nn.Module):
             fea = fused_conv([fea], self.kw["block"], act="relu", residual=fea)
         return fused_conv([fea], self.kw["out"], act="sigmoid_clip")
 
-    def train_forward(self, x: torch.Tensor, dtype: torch.dtype, *, bn_train: bool) -> torch.Tensor:
+    def train_forward(
+        self, x: torch.Tensor, dtype: torch.dtype, *, bn_train: bool, stats: list | None = None
+    ) -> torch.Tensor:
         """s2 from NHWC ``x`` (9 channels) under autograd, operands and
         activations in ``dtype``. The shared block's gradient sums over its
         three uses. ``bn_train``: batch statistics, and the running statistics
         move three times (once per use, as in torch and JAX); otherwise the
-        running statistics normalise and stay."""
+        running statistics normalise and stay. ``stats``, three (mean, var)
+        pairs, one per use, normalise instead, and nothing moves (banded
+        training supplies the full frame's batch statistics so)."""
         conv, bn = self.conv[0], self.conv[1]
         fea = torch.relu(conv2d(self.in_conv[0], x.permute(0, 3, 1, 2), dtype))
-        for _ in self.blocks:
+        for i, _ in enumerate(self.blocks):
             y = conv2d(conv, fea, dtype)
-            y = batch_norm_train(bn, y, one_pass=dtype == torch.bfloat16) if bn_train else bn(y)
+            if stats is not None:
+                y = batch_norm_with(bn, y, *stats[i])
+            elif bn_train:
+                y = batch_norm_train(bn, y, one_pass=dtype == torch.bfloat16)
+            else:
+                y = bn(y)
             fea = fea + torch.relu(y)
         s2 = clip(torch.sigmoid(conv2d(self.out_conv[0], fea, dtype)), 1e-4, 1.0)
         return s2.permute(0, 2, 3, 1)

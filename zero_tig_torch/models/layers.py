@@ -38,13 +38,25 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, *, one_pass: bool) -> 
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
     else:
         var = ((xf - mean.view(shape)) ** 2).mean(dim=(0, 2, 3))
-    n = x.numel() // x.shape[1]
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-        bn.running_var.copy_((1 - m) * bn.running_var + m * (var * (n / max(n - 1, 1))))
+    move_running_stats(bn, mean, var, x.numel() // x.shape[1])
+    return batch_norm_with(bn, x, mean, var)
+
+
+@torch.no_grad()
+def move_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+    """torch's running-statistics update from a batch's mean and BIASED
+    variance over ``n`` values a channel: momentum 0.1, unbiased variance."""
+    m = bn.momentum
+    bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+    bn.running_var.copy_((1 - m) * bn.running_var + m * (var * (n / max(n - 1, 1))))
+
+
+def batch_norm_with(bn: nn.BatchNorm2d, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """BatchNorm2d of NCHW ``x`` by the given f32 (C,) mean and biased
+    variance, with ``bn``'s scale and shift, f32 arithmetic."""
+    shape = (1, -1, 1, 1)
     inv = torch.rsqrt(var + bn.eps) * bn.weight.float()
-    return ((xf - mean.view(shape)) * inv.view(shape) + bn.bias.float().view(shape)).to(x.dtype)
+    return ((x.float() - mean.view(shape)) * inv.view(shape) + bn.bias.float().view(shape)).to(x.dtype)
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

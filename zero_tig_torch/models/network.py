@@ -194,7 +194,7 @@ def forward_train(
 
     Port of ``forward_train`` + ``forward_train_core`` (:184-444). Detached,
     as in the reference: the Enhancer input, the ``H*_pred`` anchors and
-    the whole flow branch. The flow branch (``update_cache``: RAFT and the
+    the whole flow branch. The flow branch (``warped_state``: RAFT and the
     warp, on K1, K2 and K3) runs under ``no_grad`` on the ``L2`` of this
     forward, detached: the same value the JAX package computes a second
     time in its flow phase (:238-241), and never a snapshot of older weights.
@@ -202,26 +202,69 @@ def forward_train(
     go to f32 at the boundary to the loss, as ``_forward_train_xpack``
     (:447-616) without its packed layout.
     """
+    first = train_denoise_1(model, frame)
+    w6 = warped_state(model, carry, first.L2.detach(), is_new_seq, of_scale=of_scale, raft_iters=raft_iters)
+    return forward_train_core(model, first, w6, bn_train=bn_train)
+
+
+class Denoised1(NamedTuple):
+    """Denoise_1's training outputs on one frame or row slice, in the model's
+    dtype: the input plus 1e-4, its two pair-downsampled halves, their
+    residual predictions, and the clipped full-resolution L2."""
+
+    inp: torch.Tensor
+    L11: torch.Tensor
+    L12: torch.Tensor
+    L_pred1: torch.Tensor
+    L_pred2: torch.Tensor
+    L2: torch.Tensor
+
+
+def train_denoise_1(model: ZeroTIG, frame: torch.Tensor) -> Denoised1:
     cdt = model.dtype
     inp = (frame + EPS).to(cdt)
     L11, L12 = pair_downsampler(inp)
     d1 = functools.partial(model.denoise_1.train_forward, dtype=cdt)
-    d2 = functools.partial(model.denoise_2.train_forward, dtype=cdt)
-    L_pred1 = L11 - d1(L11)
-    L_pred2 = L12 - d1(L12)
-    L2 = clip(inp - d1(inp), EPS, 1.0)
+    return Denoised1(inp, L11, L12, L11 - d1(L11), L12 - d1(L12), clip(inp - d1(inp), EPS, 1.0))
 
-    with torch.no_grad():
-        w6 = update_cache(
-            model.raft, carry["last_H3"].to(cdt), carry["last_s3"].to(cdt), L2.detach(),
-            of_scale=of_scale, raft_iters=raft_iters,
-        ).to(cdt)
-        new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
-        w6 = torch.where(new, torch.zeros_like(w6), w6)
+
+@torch.no_grad()
+def warped_state(
+    model: ZeroTIG, carry: dict, L2: torch.Tensor, is_new_seq: torch.Tensor, *, of_scale: int, raft_iters: int
+) -> torch.Tensor:
+    """The training forward's flow branch: the carry [last_H3 | last_s3]
+    warped onto the frame whose detached Denoise_1 output is ``L2``, zeroed
+    on a new sequence; (B, H, W, 6) in the model's dtype."""
+    cdt = model.dtype
+    w6 = update_cache(
+        model.raft, carry["last_H3"].to(cdt), carry["last_s3"].to(cdt), L2,
+        of_scale=of_scale, raft_iters=raft_iters,
+    ).to(cdt)
+    new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
+    return torch.where(new, torch.zeros_like(w6), w6)
+
+
+def forward_train_core(
+    model: ZeroTIG,
+    first: Denoised1,
+    w6: torch.Tensor,
+    *,
+    bn_train: bool,
+    bn_stats: list | None = None,
+) -> tuple[TrainOutputs, dict]:
+    """The gradient-carrying rest of the training forward after the flow
+    branch: the Enhancer on [w6 | L2], Denoise_2 three times, the loss's
+    maps. Every op is local in space, so banded training runs it on row
+    slices (``pipeline/spatial.py``). ``bn_stats``: three (mean, var) pairs
+    that the Enhancer's BatchNorm normalises with instead of its batch or
+    running statistics (port of ``forward_train_core``'s ``bn_overrides``)."""
+    cdt = model.dtype
+    inp, L11, L12, L_pred1, L_pred2, L2 = first
+    d2 = functools.partial(model.denoise_2.train_forward, dtype=cdt)
     last_H31_wp, last_H32_wp = pair_downsampler(w6[..., :3])
     last_s31_wp, last_s32_wp = pair_downsampler(w6[..., 3:])
 
-    s2 = model.enhance.train_forward(torch.cat([w6, L2.detach()], -1), cdt, bn_train=bn_train)
+    s2 = model.enhance.train_forward(torch.cat([w6, L2.detach()], -1), cdt, bn_train=bn_train, stats=bn_stats)
     s21, s22 = pair_downsampler(s2)
     H2 = clip(inp / s2, EPS, 1.0)
     H11 = clip(L11 / s21, EPS, 1.0)

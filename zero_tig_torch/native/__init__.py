@@ -16,10 +16,14 @@ here on every machine:
     ``zlib`` level 1 with the run-length strategy, OpenCV's default PNG
     strategy. The bytes differ from OpenCV's; the decoded pixels are equal.
 
-``pngio.cpp`` is compiled with the host C++ compiler at first use into
-``build/zero_tig_torch/host/`` under a name keyed by a hash of the source
-and flags; a failed build raises. JPEG frames and resizing a frame that is
-not at the target size go through Pillow, imported when one is needed.
+``pngio.cpp`` is compiled with the host C++ compiler (``$CXX``, else
+``c++`` or ``g++``) at first use into ``build/zero_tig_torch/host/`` under
+a name keyed by a hash of the source, flags, compiler and the machine's
+boot, so a library built elsewhere is never loaded; a failed build raises. JPEG
+frames and resizing a frame that is not at the target size go through
+Pillow, imported when one is needed. ``frameio`` holds the port's copy of
+the JAX package's C++ frame pipeline (libpng and libjpeg), which
+``ZERO_TIG_NATIVE_IO=1`` puts under the datasets.
 """
 
 from __future__ import annotations
@@ -50,28 +54,45 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return h.hexdigest()[:16]
+def _boot_id() -> str:
+    """This boot of this machine: a library built on another machine (or
+    before a reboot, against other system libraries) is never loaded."""
+    try:
+        return Path("/proc/sys/kernel/random/boot_id").read_text().strip()
+    except OSError:
+        return os.uname().nodename
+
+
+def compile_shared(source: Path, stem: str, libs: tuple[str, ...] = ()) -> Path:
+    """Compile ``source`` into ``BUILD_DIR/<stem>-<hash>.so``, linked with
+    ``libs``, once per hash of the source, flags, libraries, compiler and
+    boot of the machine. A failed build raises RuntimeError with the
+    compiler's message."""
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler ($CXX, c++ or g++): {source.name} cannot be built")
+    h = hashlib.sha256(" ".join((cxx, _boot_id()) + CXX_FLAGS + libs).encode())
+    h.update(source.read_bytes())
+    target = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = Path(tmp) / target.name
+        try:
+            res = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", str(out), *libs],
+                                 capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"building {source.name} with {cxx} failed: {e}") from e
+        if res.returncode != 0:
+            raise RuntimeError(f"building {source.name} failed:\n{res.stdout}{res.stderr}")
+        os.replace(out, target)  # atomic: a reader never sees half a file
+    return target
 
 
 def build() -> Path:
     """Compile ``pngio.cpp`` into a shared library (once per source hash)."""
-    target = BUILD_DIR / f"libzt_pngio-{_digest()}.so"
-    if target.exists():
-        return target
-    cxx = shutil.which("c++") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (c++ or g++) on PATH: the port's PNG codec cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        out = Path(tmp) / target.name
-        res = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(out)], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n{res.stdout}{res.stderr}")
-        os.replace(out, target)  # atomic: a reader never sees half a file
-    return target
+    return compile_shared(SOURCE, "libzt_pngio")
 
 
 def library() -> ctypes.CDLL:
@@ -183,4 +204,4 @@ def resize_bicubic_pil(rgb: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """Pillow's antialiased bicubic resize to ``size`` = (W, H), the
     reference's (multi_read_data.py:127-132)."""
     Image = _pillow()
-    return np.asarray(Image.fromarray(rgb).resize(size, Image.Resampling.BICUBIC), np.uint8)
+    return np.array(Image.fromarray(rgb).resize(size, Image.Resampling.BICUBIC), np.uint8)

@@ -233,11 +233,27 @@ def fused_conv_reference(
     hi: float = 1.0,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: the same roundings (operands as
-    given, f32 sum and epilogue, one cast of the result)."""
-    x = torch.cat([t.float() for t in inputs], dim=-1).permute(0, 3, 1, 2)
-    w = cw.w.float().permute(3, 2, 0, 1)
-    acc = F.conv2d(x, w, padding=cw.padding).permute(0, 2, 3, 1)
+    """Plain PyTorch twin of the kernel: operands as given, an f32 epilogue
+    and one cast of the result. On the card the convolution sums in f32, as
+    the kernel does; on the CPU it sums in f64 and rounds once to f32.
+
+    The CPU's f64 sum is there so that one set of values gives one set of
+    bits on every call. An f32 convolution on the CPU goes through oneDNN,
+    which picks its kernel and blocking per call, so the order of its sums
+    and with it the last bit may change between calls. An f64 convolution
+    takes PyTorch's own im2col and GEMM path instead. A product of two bf16
+    operands has at most 16 significant bits, so it is exact in f64, and a
+    sum of such products is exact in any order unless its terms span more
+    than about 2^30 (f64's 53 bits, less the products' 16 and the bits of
+    the count): any order then gives the same f64 value and the same f32
+    rounding. Where a sum is not exact, as with f32 operands, two orders
+    differ by ~2^-29 of an f32 ulp, which shows after the rounding only for
+    a value that close to a rounding boundary."""
+    cpu = inputs[0].device.type == "cpu"
+    acc_dtype = torch.float64 if cpu else torch.float32
+    x = torch.cat([t.to(acc_dtype) for t in inputs], dim=-1).permute(0, 3, 1, 2)
+    w = cw.w.to(acc_dtype).permute(3, 2, 0, 1)
+    acc = F.conv2d(x, w, padding=cw.padding).permute(0, 2, 3, 1).float()
     v = acc * cw.scale + cw.shift
     if act == "relu":
         v = torch.relu(v)
