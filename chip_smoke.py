@@ -84,7 +84,27 @@ zero_tig_torch/csrc from the checkout, then:
      BatchNorm schedule (losses, gradients, running statistics, and the
      flow phase's launches, which must be phase 7's per frame), then
      ms/frame and peak device memory for 1, 2 and 4 bands in each, and a
-     trace of one highest-mode step on running statistics by 1 and 2 bands.
+     trace of one highest-mode step on running statistics by 1 and 2 bands;
+ 11. drives multi-device runs (zero_tig_torch/parallel) at 1080p, of_scale=3,
+     12 RAFT iterations: two ranks spawned by parallel.launch share the card
+     over gloo (the backend rule for ranks on one card) and run, in one
+     launch, (a) mesh 2x1 predict_scenes_spmd in fast mode on phase 8's
+     fixture (2 scenes x 4 frames), whose u8 outputs must equal the
+     single-process predict_step loop's byte for byte, with phase 3's
+     launches per frame on each rank, and ms/frame per rank with both
+     streaming together; (b) mesh 1x2 predict_step_banded (halo 32) on the
+     same frames, within 1/64 and 4 PNG levels of the whole frame; (c) mesh
+     2x1 and 1x2 training in highest mode, 2 steps (batch, then running
+     statistics) from a random carry, each step's loss and gradients
+     against the single-process step within phase 10's limits (a leaf's
+     gradient limit raised by how far the single-process step itself moves
+     when its batch holds the same frames twice over) and the
+     parameters bit-equal across the ranks, with phase 7's launches per
+     frame; and 1x2 training ms/step and peak device memory per rank in
+     each precision and schedule; then (d) one NCCL rank (world size 1,
+     through make_mesh) takes a training step, held against train_step, and
+     times predict_step alone; (e) predict --mesh_data 2 must write PNGs
+     byte-equal to the single-process CLI's; (f) each run's backend.
 
 Before phase 2 it prints one line on whether the native frame pipeline
 (zero_tig_torch/native/frameio.cc, libpng and libjpeg) builds and loads;
@@ -131,7 +151,7 @@ from zero_tig_torch.core.config import Config
 from zero_tig_torch.data import create_dataset, make_rlv_fixture
 from zero_tig_torch.kernels import build
 from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
-from zero_tig_torch.models import build_model, init_random_state_dict
+from zero_tig_torch.models import build_model, init_random_state_dict, init_state_dict
 from zero_tig_torch.models.network import forward_train, reinit_enhancer
 from zero_tig_torch.native import frameio
 from zero_tig_torch.models.raft.update import update_core
@@ -1469,6 +1489,246 @@ def phase10_banded(sd, report, smi) -> None:
     report["banded"] = {"agreement": agree, "timing": timing}
 
 
+MESH_TIMED_FRAMES = 8  # each rank's timed predict stream
+MESH_TRAIN_STEPS = 2  # timed training steps of the 1x2 mesh, after a warm-up step
+
+
+def _train_reference(sd, trained, carry, frames, new: bool, bn_train: bool):
+    """The single-process training step's loss and gradients (train_step's,
+    before its update) on ``frames`` (B, H, W, 3), highest mode: ``sd``
+    with the trained tensors ``trained`` over it, from ``carry``."""
+    state = init_train_state(Config(precision="highest", of_scale=OF_SCALE, raft_iters=ITERS), {**sd, **trained},
+                             tuple(frames.shape), device="cuda")
+    with precision.numerics("highest"):
+        outs, _ = forward_train(state.model, frames, {k: v.cuda() for k, v in carry.items()},
+                                torch.tensor(new, device="cuda"), bn_train=bn_train, of_scale=OF_SCALE,
+                                raft_iters=ITERS)
+        loss = zero_tig_loss(frames, outs)
+        loss.backward()
+    grads = {n: g.cpu() for n, g in _grads(state.model).items()}
+    del state, outs
+    return float(loss.detach()), grads
+
+
+def _grad_excess(got: dict, ref: dict, bn_train: bool) -> dict[str, float]:
+    """Phase 10's measure of two gradients, per leaf: the largest excess of
+    |got - ref| over 1e-4 |ref|, relative to the leaf's largest; the shared
+    block's conv bias, exactly 0 under batch statistics, is left out."""
+    out = {}
+    for name, gm in ref.items():
+        if name == "enhance.conv.0.bias" and bn_train:
+            continue
+        scale = max(float(gm.abs().max()), 1e-3)
+        out[name] = float(((got[name] - gm).abs() - 1e-4 * gm.abs()).max()) / scale
+    return out
+
+
+def _norm_rel(got: dict, ref: dict, leaves) -> float:
+    """The worst of ``leaves``' |got - ref| / |ref|."""
+    return max(float((got[n] - ref[n]).norm() / ref[n].norm()) for n in leaves)
+
+
+def phase11_multidevice(sd, report, smi, main_ms: float) -> None:
+    """Multi-device runs (zero_tig_torch/parallel) on the one card: two ranks
+    spawned by parallel.launch share it over gloo; one NCCL rank alone."""
+    from zero_tig_torch.parallel import launch, probe
+
+    out: dict = {}
+    kw = dict(of_scale=OF_SCALE, raft_iters=ITERS)
+    train_sd = init_state_dict(SEED, for_training=True)  # the reference's Enhancer init, as training starts
+    with tempfile.TemporaryDirectory(prefix="zt_mesh_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        fx = make_rlv_fixture(str(tmp / "rlv"), scenes=FIXTURE_SCENES, frames_per_scene=FIXTURE_FRAMES,
+                              size=(W, H), occluder=True)
+        recs = list(create_dataset("RLV", fx, "test", size=(W, H)))
+        frames = torch.from_numpy(np.stack([r.image for r in recs])[:, None])  # (8, 1, H, W, 3) f32
+        flags = [r.is_new_seq for r in recs]
+        g = torch.Generator().manual_seed(SEED)
+        t_frames = torch.rand(2, 2, 1, H, W, 3, generator=g) * 0.25  # (scene, step, 1, H, W, 3)
+        t_carry = {"last_H3": torch.rand(2, 1, H, W, 3, generator=g) * 0.5,
+                   "last_s3": torch.rand(2, 1, H, W, 3, generator=g) * 0.5 + 0.25}
+        t_flags = [[False, False], [False, False]]  # both steps continue: the flow runs
+        cfg_fast = Config(dataset="RLV", lowlight_images_path=fx, frame_width=W, frame_height=H, precision="fast",
+                          spatial_halo=BAND_HALO, **kw)
+        cfg_high = Config(precision="highest", **kw)
+        calls = [
+            (probe.predict_scenes, (2, 1), (cfg_fast, sd)),  # (a)
+            (probe.time_predict, (2, 1), (sd, "fast", MESH_TIMED_FRAMES, (1, H, W, 3), kw)),
+            (probe.predict_banded, (1, 2), (sd, "fast", frames, {k: torch.zeros(1, H, W, 3) for k in t_carry},
+                                            flags, dict(halo=BAND_HALO, **kw))),  # (b)
+            (probe.train_steps, (2, 1), (cfg_high, train_sd, t_frames, t_carry, t_flags, [True, False],
+                                         BAND_HALO)),  # (c)
+            (probe.train_steps, (1, 2), (cfg_high, train_sd, t_frames[:1], {k: v[:1] for k, v in t_carry.items()},
+                                         t_flags[:1], [True, False], BAND_HALO)),
+        ] + [(probe.time_train, (1, 2), (Config(precision=mode, **kw), train_sd, MESH_TRAIN_STEPS, (1, H, W, 3),
+                                         bn_train, BAND_HALO))
+             for mode in ("fast", "highest") for bn_train in (True, False)]
+        print(f"mesh fixture {len(recs)} frames of {W}x{H} and the training inputs in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.run(probe.sequence, (calls,), n_data=2, device="cuda")
+        out["spawned_ranks_s"] = time.perf_counter() - t0
+        (pa0, ta0, pb0, c20, c120, *tt0), (pa1, ta1, pb1, c21, c121, *tt1) = ranks
+        backends = {r["backend"] for rank in ranks for r in rank}
+        print(f"two ranks on one card: {len(calls)} programs in {out['spawned_ranks_s']:.1f} s with start-up, "
+              f"backend {backends}", flush=True)
+        if backends != {"gloo"}:
+            fail(f"two ranks sharing a card ran {backends}, not gloo")
+
+        # (a) scene-parallel inference against the single-process predict_step loop
+        fast = build_model(sd, device="cuda", precision="fast")
+        ref, carry = {}, init_carry(fast, (1, H, W, 3))
+        for r, f in zip(recs, frames):
+            (H2, H3, s3), carry = predict_step(fast, f.cuda(), carry, r.is_new_seq, **kw)
+            ref[r.path] = (H2[0].cpu(), H3[0].cpu(), s3[0].cpu())
+        got = {**pa0["outputs"], **pa1["outputs"]}
+        if sorted(got) != sorted(ref) or [pa0["count"], pa1["count"]] != [FIXTURE_FRAMES, FIXTURE_FRAMES]:
+            fail(f"scene-parallel inference emitted {[pa0['count'], pa1['count']]} frames")
+        same = all(torch.equal(to_u8(a), to_u8(b)) for p in ref for a, b in zip(got[p][:2], ref[p][:2]))
+        err_a = max(float((a - b).abs().max()) for p in ref for a, b in zip(got[p], ref[p]))
+        want = {"fused_conv": K1_PER_FRAME * FIXTURE_FRAMES, "gru": GRU_PER_FRAME * FIXTURE_FRAMES,
+                "equalize_u8": EQ_PER_FRAME * FIXTURE_FRAMES, "conv3x3_bf16": 0}
+        print(f"(a) mesh 2x1 predict_scenes_spmd, fast, {len(recs)} frames: PNG bytes (u8 H2, H3) equal to the "
+              f"single-process predict_step loop: {same}; f32 max_abs_err {err_a:.3e}; launches per rank "
+              f"{[pa0['launches'], pa1['launches']]} (each {want}: phase 3's a frame)", flush=True)
+        if not same:
+            fail("scene-parallel inference differs from the single-process loop")
+        if pa0["launches"] != want or pa1["launches"] != want:
+            fail("scene-parallel inference launch counts differ from phase 3's per frame")
+        agg_fps = 2 * 1e3 / max(ta0["ms_per_frame"], ta1["ms_per_frame"])
+
+        # (b) row-sharded inference, the same frames
+        err_b = max(float((a - b).abs().max()) for (o, r) in zip(pb0["outputs"], recs)
+                    for a, b in zip(o, (x[None] for x in ref[r.path])))
+        lv_b = max(int((to_u8(a).int() - to_u8(b).int()).abs().max()) for (o, r) in zip(pb0["outputs"], recs)
+                   for a, b in zip(o[:2], (x[None] for x in ref[r.path][:2])))
+        same_ranks = all(torch.equal(v, pb1["carry"][k]) for k, v in pb0["carry"].items())
+        want_b = {k: v * len(recs) // FIXTURE_FRAMES for k, v in want.items()}
+        print(f"(b) mesh 1x2 predict_step_banded (halo {BAND_HALO}), fast, {len(recs)} frames: against the whole "
+              f"frame f32 max_abs_err {err_b:.3e}, PNG levels {lv_b} (limit: bf16 rounding, 1/64 and 4 levels); "
+              f"both ranks hold the same carry: {same_ranks}; launches per rank {[pb0['launches'], pb1['launches']]} "
+              f"(each {want_b})", flush=True)
+        if err_b > 1 / 64 or lv_b > 4 or not same_ranks:
+            fail("row-sharded inference differs from the whole frame beyond its limit")
+        if pb0["launches"] != want_b or pb1["launches"] != want_b:
+            fail("row-sharded inference launch counts differ from phase 3's per frame")
+        del fast, got, ref
+
+        # (c) training, highest, 2 steps (batch, then running statistics): each
+        # step held against the single-process step from the mesh's own state
+        # before it, within phase 10's limits. Under batch statistics the
+        # Enhancer's in_conv gradient is the small difference of large terms:
+        # the single-process step itself moves by ~2e-4 of it when only its
+        # batch's layout changes (the same frames twice over: equal in exact
+        # arithmetic; cuDNN and cuBLAS take other algorithms at another batch
+        # size). That noise is measured per leaf and added to the limit.
+        agree = {}
+        want_t = {"fused_conv": K1_PER_TRAIN_FRAME * 2, "gru": GRU_PER_FRAME * 2, "equalize_u8": EQ_PER_FRAME * 2,
+                  "conv3x3_bf16": 0}
+        for label, r0, r1 in (("2x1", c20, c21), ("1x2", c120, c121)):
+            scenes = 2 if label == "2x1" else 1
+            if not (r0["replicated"] and r1["replicated"]) or any(
+                    not torch.equal(v, r1["steps"][-1]["trained"][k]) for k, v in r0["steps"][-1]["trained"].items()):
+                fail(f"mesh {label} training: the ranks' parameters differ")
+            if r0["launches"] != want_t or r1["launches"] != want_t:
+                fail(f"mesh {label} training launches {[r0['launches'], r1['launches']]} != {want_t}")
+            before, carries = {}, {k: v[:scenes].clone() for k, v in t_carry.items()}
+            for k, bn_train in enumerate((True, False)):
+                step = r0["steps"][k]
+                batch = t_frames[:scenes, k, 0].cuda()
+                carry_k = {n: v[:, 0] for n, v in carries.items()}
+                loss_m, g_m = _train_reference(train_sd, before, carry_k, batch, False, bn_train)
+                _, g_twice = _train_reference(train_sd, before, {n: v.repeat(2, 1, 1, 1) for n, v in carry_k.items()},
+                                              batch.repeat(2, 1, 1, 1), False, bn_train)
+                noise = _grad_excess(g_twice, g_m, bn_train)
+                over = {n: e - max(noise[n], 0.0) for n, e in _grad_excess(step["grads"], g_m, bn_train).items()}
+                leaf = max(over, key=over.get)
+                loss_err = abs(float(step["loss"]) / loss_m - 1)
+                rel = _norm_rel(step["grads"], g_m, over)
+                ok = loss_err <= 3e-6 and over[leaf] <= 1e-4
+                print(f"(c) mesh {label} training step {k + 1}, highest, bn_train={bn_train}: loss "
+                      f"{float(step['loss']):.6f} against {loss_m:.6f} rel {loss_err:.2e} (tol 3e-6); gradients: worst "
+                      f"excess beyond the single process's own layout noise {over[leaf]:.2e} ({leaf}; tol 1e-4; that "
+                      f"leaf's noise {noise[leaf]:.2e}, worst noise {max(noise.values()):.2e}), worst norm rel "
+                      f"{rel:.2e}; {'ok' if ok else 'FAIL'}", flush=True)
+                agree[f"{label}_step{k + 1}"] = {"loss_rel_err": loss_err, "grad_excess": over[leaf], "worst_leaf": leaf,
+                                                 "leaf_noise": noise[leaf], "grad_norm_rel": rel}
+                if not ok:
+                    fail(f"mesh {label} training step {k + 1} disagrees with the single-process step")
+                before = step["trained"]
+                carries = {n: torch.stack([rk["steps"][k]["carry"][n] for rk in ((r0, r1) if scenes == 2 else (r0,))])
+                           for n in carries}
+            print(f"(c) mesh {label}: the ranks' parameters bit-equal after 2 steps; launches per rank "
+                  f"{r0['launches']} ({want_t}: phase 7's a frame)", flush=True)
+        del c20, c21, c120, c121
+
+        # (d) one NCCL training step at world size 1, through make_mesh, in this process
+        torch.cuda.empty_cache()
+        nccl = launch.run(probe.sequence, ([
+            (probe.train_steps, (1, 1), (cfg_high, train_sd, t_frames[:1, :1], {k: v[:1] for k, v in t_carry.items()},
+                                         [[False]], [True], BAND_HALO)),
+            (probe.time_predict, (1, 1), (sd, "fast", MESH_TIMED_FRAMES, (1, H, W, 3), kw)),
+        ],), device="cuda")[0]
+        nstep = nccl[0]["steps"][0]
+        loss_m, g_m = _train_reference(train_sd, {}, {k: v[:1, 0] for k, v in t_carry.items()},
+                                       t_frames[:1, 0, 0].cuda(), False, True)
+        excess = _grad_excess(nstep["grads"], g_m, True)
+        leaf = max(excess, key=excess.get)
+        worst = excess[leaf]
+        loss_err = abs(float(nstep["loss"]) / loss_m - 1)
+        print(f"(d) NCCL at world size 1 (backend {nccl[0]['backend']}): training step loss rel {loss_err:.2e}, "
+              f"gradient excess {worst:.2e} ({leaf}) against train_step", flush=True)
+        if nccl[0]["backend"] != "nccl" or loss_err > 3e-6 or worst > 1e-4:
+            fail("the NCCL step at world size 1 failed its checks")
+        single = nccl[1]
+
+        # (e) predict --mesh_data 2 against the single-process CLI, byte for byte
+        pt = tmp / "seeded.pt"
+        save_pt(pt, build_model(sd, device="cpu", precision="highest"))
+        common = CLI_FLAGS + ["--lowlight_images_path", fx, "--model_pretrain", str(pt), "--precision", "fast"]
+        one_s, _ = run_cli("predict single process", cli_predict.main, common + ["--save", str(tmp / "p1"),
+                                                                                  "--chunk", "4"])
+        mesh_s, _ = run_cli("predict --mesh_data 2", cli_predict.main, common + ["--save", str(tmp / "p2"),
+                                                                                  "--mesh_data", "2"])
+        p1 = {str(q.relative_to(tmp / "p1")): native.read_rgb(q) for q in (tmp / "p1").rglob("*.png")}
+        p2 = {str(q.relative_to(tmp / "p2")): native.read_rgb(q) for q in (tmp / "p2").rglob("*.png")}
+        equal = p1.keys() == p2.keys() and len(p1) == 2 * len(recs) and all(np.array_equal(p1[k], p2[k]) for k in p1)
+        cli_backend = re.search(r"backend (\w+)", (tmp / "p2" / "log.txt").read_text())
+        print(f"(e) predict --mesh_data 2: {len(p2)} PNGs byte-equal to the single-process CLI's (--chunk 4): "
+              f"{equal}; wall {mesh_s:.1f} s with the ranks' start-up, single process {one_s:.1f} s", flush=True)
+        if not equal:
+            fail("predict --mesh_data 2 PNGs differ from the single-process CLI's")
+
+    # (f) the backends, and the numbers
+    cli_backend = cli_backend.group(1) if cli_backend else None
+    print(f"(f) backends: two ranks on one card {sorted(backends)}, one rank alone {nccl[0]['backend']}, predict "
+          f"--mesh_data 2 {cli_backend}", flush=True)
+    if cli_backend != "gloo":
+        fail(f"predict --mesh_data 2 ran backend {cli_backend}")
+    print(f"mesh 2x1 inference, fast, 1080p, predict_step per frame on frames on the card, two ranks sharing the "
+          f"card: {ta0['ms_per_frame']:.3f} / {ta1['ms_per_frame']:.3f} ms/frame per rank, {agg_fps:.2f} frames/s "
+          f"together; one rank alone {single['ms_per_frame']:.3f} ms/frame ({1e3 / single['ms_per_frame']:.2f} "
+          f"frames/s); phase 3's predict_chunk {main_ms:.3f} ms/frame; peak device memory per rank "
+          f"{ta0['peak_mem_gb']:.3f} / {ta1['peak_mem_gb']:.3f} GB on {smi}", flush=True)
+    timing = {}
+    for i, (mode, bn_train) in enumerate((m, b) for m in ("fast", "highest") for b in (True, False)):
+        timing[f"{mode}_bn{int(bn_train)}"] = {"ms_per_step": [tt0[i]["ms_per_step"], tt1[i]["ms_per_step"]],
+                                               "peak_mem_gb": [tt0[i]["peak_mem_gb"], tt1[i]["peak_mem_gb"]]}
+    print(f"mesh 1x2 training 1080p (halo {BAND_HALO}), ms/step per rank (peak device GB per rank): " + "; ".join(
+        f"{k}: {v['ms_per_step'][0]:.3f} / {v['ms_per_step'][1]:.3f} ({v['peak_mem_gb'][0]:.2f} / "
+        f"{v['peak_mem_gb'][1]:.2f})" for k, v in timing.items()) + f" on {smi}", flush=True)
+    out.update({"predict_2x1": {"ms_per_frame": [ta0["ms_per_frame"], ta1["ms_per_frame"]], "frames_per_s": agg_fps,
+                                "peak_mem_gb": [ta0["peak_mem_gb"], ta1["peak_mem_gb"]],
+                                "launches": [pa0["launches"], pa1["launches"]], "max_abs_err": err_a},
+                "predict_1rank_nccl": single, "predict_1x2": {"max_abs_err": err_b, "png_levels": lv_b},
+                "training": agree, "train_1x2_timing": timing, "predict_cli_equal": equal,
+                "backends": {"shared_card": sorted(backends), "alone": nccl[0]["backend"], "cli": cli_backend}})
+    report["multidevice"] = out
+
+
 def frameio_build_line() -> str:
     """One line of information, not a phase: whether the native frame
     pipeline (host C++, libpng and libjpeg) builds where the script runs."""
@@ -1518,7 +1778,8 @@ def main() -> int:
     phase7_training(sd, report, smi)
     phase8_cli(sd, report, smi, report["main_path"]["ms_per_frame"])
     for label, phase in (("9", lambda: phase9_serve(sd, report, smi, report["main_path"]["ms_per_frame"])),
-                         ("10", lambda: phase10_banded(sd, report, smi))):
+                         ("10", lambda: phase10_banded(sd, report, smi)),
+                         ("11", lambda: phase11_multidevice(sd, report, smi, report["main_path"]["ms_per_frame"]))):
         t0 = time.perf_counter()
         phase()
         report[f"phase{label}_s"] = time.perf_counter() - t0

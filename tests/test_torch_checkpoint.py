@@ -230,14 +230,16 @@ def test_config_matches_jax():
 @pytest.mark.parametrize("flag,value,item", [("mesh_data", 2, "item 9"), ("mesh_spatial", 4, "item 9"),
                                              ("spatial_bands", 4, "item 8")])
 def test_unsupported_values_raise(flag, value, item):
+    """Values the port once refused: banded training (ROADMAP queue 1 item 8)
+    and multi-device runs (item 9) are ported now, so each value is taken as
+    it is; a frame the mesh's spatial axis cannot band still raises."""
     parser = argparse.ArgumentParser()
     tconfig.add_config_args(parser)
-    if item == "item 8":
-        # banded training is ported now: the value is taken as it is
-        assert getattr(tconfig.Config(**{flag: value}), flag) == value
-        assert getattr(tconfig.config_from_args(parser.parse_args([f"--{flag}", str(value)])), flag) == value
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.Config(**{flag: value})
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.config_from_args(parser.parse_args([f"--{flag}", str(value)]))
+    assert getattr(tconfig.Config(**{flag: value}), flag) == value
+    assert getattr(tconfig.config_from_args(parser.parse_args([f"--{flag}", str(value)])), flag) == value
+    if flag == "mesh_spatial":
+        # 100 rows make 4 bands of 25: odd, and the pair maps need even rows
+        with pytest.raises(ValueError, match="even band heights"):
+            tconfig.Config(mesh_spatial=value, frame_height=100)
+        with pytest.raises(ValueError, match="even band heights"):
+            tconfig.config_from_args(parser.parse_args([f"--{flag}", str(value), "--frame_height", "100"]))

@@ -3,10 +3,12 @@ field names and defaults.
 
 Port of ``zero_tig_tpu/core/config.py`` (:17-92; reference train.py:15-27,
 model/model.py, loss.py): every field, the TPU knobs included, so a
-reference or JAX command line parses unchanged. Values the port cannot
-honour yet raise ``NotImplementedError`` when the ``Config`` is made:
-``mesh_data`` / ``mesh_spatial`` above 1 (ROADMAP queue 1 item 9,
-multi-device). ``spatial_bands`` above 1 trains in bands of rows
+reference or JAX command line parses unchanged. ``mesh_data`` /
+``mesh_spatial`` above 1 run on a mesh of ranks (``parallel/``): scenes
+over the data axis, bands of each frame's rows over the spatial axis, so
+the frame height must split into ``mesh_spatial`` even band heights and
+the halo must be even, or the ``Config`` raises ``ValueError`` when it is
+made. ``spatial_bands`` above 1 trains in bands of rows on one device
 (``pipeline/spatial.py``), ``spatial_halo`` rows around each.
 ``compute_dtype`` is read by nothing, as in the JAX package: the precision
 mode sets the dtype. ``prefetch_depth`` sets the depth of
@@ -67,10 +69,13 @@ class Config:
     spatial_halo: int = 32
 
     def __post_init__(self) -> None:
-        if self.mesh_data > 1 or self.mesh_spatial > 1:
-            raise NotImplementedError(
-                f"mesh_data={self.mesh_data}, mesh_spatial={self.mesh_spatial}: multi-device runs "
-                "are not ported yet (ROADMAP.md queue 1 item 9)"
+        if self.mesh_data < 1 or self.mesh_spatial < 1:
+            raise ValueError(f"mesh_data={self.mesh_data}, mesh_spatial={self.mesh_spatial}: each must be >= 1")
+        n = self.mesh_spatial
+        if n > 1 and (self.frame_height % n or (self.frame_height // n) % 2 or self.spatial_halo % 2):
+            raise ValueError(
+                f"mesh_spatial={n}: frame_height={self.frame_height} must split into {n} even band heights "
+                f"and spatial_halo={self.spatial_halo} must be even"
             )
 
     @property

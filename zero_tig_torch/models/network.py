@@ -98,6 +98,7 @@ def forward_inference(
     of_scale: int = 3,
     raft_iters: int = 12,
     enh_scale: int = 1,
+    rows: slice = slice(None),
 ) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], dict]:
     """One frame (B, H, W, 3) f32 in [0, 1] -> ((H2, H3, s3), new_carry),
     all f32 (B, H, W, 3). is_new_seq: bool tensor, scalar or (B,).
@@ -105,7 +106,12 @@ def forward_inference(
     enh_scale > 1 runs the Enhancer at 1/enh_scale of the frame (a bilinear
     resize of its inputs) and resizes s2 back up, where the frame divides
     by it; elsewhere it warns and runs at full resolution (JAX :713-729).
-    The denoisers always run at full resolution."""
+    The denoisers always run at full resolution.
+
+    ``rows``: the Enhancer and Denoise_2 run on these rows of the frame
+    alone, and the outputs are theirs (a band of a row-sharded step,
+    ``parallel/spmd_predict.py``); Denoise_1, the flow and the warp still
+    take the whole frame. At 1/enh_scale the Enhancer takes the whole frame."""
     if not model.prepared:
         model.prepare()
     with numerics(model.precision):
@@ -119,10 +125,10 @@ def forward_inference(
         new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
         w6 = torch.where(new, torch.zeros_like(w6), w6)
 
-        s2 = _enhance(model, w6, L2, enh_scale)
-        H2 = torch.clamp(inp / s2, EPS, 1.0)
+        s2 = _enhance(model, w6, L2, enh_scale, rows)
+        H2 = torch.clamp(inp[:, rows] / s2, EPS, 1.0)
         # new-sequence quirk (model/model.py:330-332): warped previous := H2
-        w6 = torch.where(new, torch.cat([H2, H2], dim=-1), w6).contiguous()
+        w6 = torch.where(new, torch.cat([H2, H2], dim=-1), w6[:, rows]).contiguous()
         H5 = model.denoise_2([w6, H2, s2], anchor=[H2, s2])
 
     H3 = H5[..., :3].float().contiguous()
@@ -130,7 +136,7 @@ def forward_inference(
     return (H2.float(), H3, s3), {"last_H3": H3, "last_s3": s3}
 
 
-def _enhance(model: ZeroTIG, w6: torch.Tensor, L2: torch.Tensor, enh_scale: int) -> torch.Tensor:
+def _enhance(model: ZeroTIG, w6: torch.Tensor, L2: torch.Tensor, enh_scale: int, rows: slice) -> torch.Tensor:
     h, w = L2.shape[1], L2.shape[2]
     if enh_scale > 1 and (h % enh_scale or w % enh_scale):
         warnings.warn(
@@ -141,12 +147,14 @@ def _enhance(model: ZeroTIG, w6: torch.Tensor, L2: torch.Tensor, enh_scale: int)
             stacklevel=3,
         )
     if enh_scale <= 1 or h % enh_scale or w % enh_scale:
-        return model.enhance([w6, L2])
+        return model.enhance([w6[:, rows].contiguous(), L2[:, rows].contiguous()])
     # the resize is per channel, so the two parts resize apart and stay
-    # two inputs of the first launch
+    # two inputs of the first launch. A band of the small frame would need
+    # halo rows of its own, and the resize back a row across the band's
+    # edge: the whole frame it is, on every rank of a row-sharded scene
     small = (h // enh_scale, w // enh_scale)
     s2 = model.enhance([resize_bilinear(w6, small), resize_bilinear(L2, small)])
-    return resize_bilinear(s2, (h, w))
+    return resize_bilinear(s2, (h, w))[:, rows].contiguous()
 
 
 class TrainOutputs(NamedTuple):

@@ -23,7 +23,9 @@ reduction with gradients. They are computed exactly, in three passes:
   * pass A (``_bn_pass_a``): each use k of the shared block gets its
     (mean_k, var_k) from owned-row sums over the bands, stage after stage,
     each band's (fea, pre-BN) activations kept from one stage to the next;
-    the variance is the centered sum of squares, in f32;
+    the variance is the centered sum of squares; each sum is
+    ``layers.channel_sum``'s (rows in f32, the rows' sums in f64), so the
+    statistics barely depend on how the rows split into bands or processes;
   * pass B (``_band_grad``): each band's loss and gradients with the stats
     as differentiable inputs; their gradients sum over the bands;
   * pass C (``_bn_pass_c``): the stats' adjoints back through the
@@ -49,7 +51,7 @@ from ..core.precision import numerics
 from ..losses.zero_tig_loss import Region, loss_factor, rgb2ycbcr_scrambled, zero_tig_loss
 from ..models.enhancer import Enhancer
 from ..models.denoise import EPS
-from ..models.layers import batch_norm_with, clip, conv2d, move_running_stats
+from ..models.layers import batch_norm_with, channel_sum, clip, conv2d, move_running_stats
 from ..models.network import ZeroTIG, forward_train_core, train_denoise_1, warped_state
 from .steps import TrainState, _carry_on, _norm_frames
 
@@ -117,20 +119,26 @@ def _stage0(enh: Enhancer, enh_in, geom, slice_h: int, dtype):
     return fea, conv2d(enh.conv[0], fea, dtype)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The sums over this process's bands are the sums over every band."""
+    return t
+
+
 @torch.no_grad()
-def _bn_pass_a(enh: Enhancer, enh_in, geoms, *, slice_h: int, n_el: int, dtype):
+def _bn_pass_a(enh: Enhancer, enh_in, geoms, *, slice_h: int, n_el: int, dtype, reduce=_local):
     """The full frame's batch statistics of the block's three uses, exactly:
-    owned-row sums over the bands, f32, the variance centered. Returns the
-    three (mean, biased var) pairs."""
+    owned-row ``channel_sum``s over the bands, the variance centered. Returns the
+    three (mean, biased var) pairs. ``reduce`` sums a (C,) sum over the
+    processes that hold the other bands (``parallel/spmd_train.py``)."""
     acts = [_stage0(enh, enh_in, g, slice_h, dtype) for g in geoms]
     stats = []
     for k in range(3):
         if k:
             acts = [_stage(enh, fea, pre, *stats[k - 1], dtype) for fea, pre in acts]
-        mean = sum(_owned(pre, g).float().sum(dim=(0, 2, 3)) for (_, pre), g in zip(acts, geoms)) / n_el
+        mean = (reduce(sum(channel_sum(_owned(pre, g)) for (_, pre), g in zip(acts, geoms))) / n_el).float()
         c = mean.view(1, -1, 1, 1)
-        var = sum(torch.square(_owned(pre, g).float() - c).sum(dim=(0, 2, 3)) for (_, pre), g in zip(acts, geoms))
-        stats.append((mean, var / n_el))
+        var = reduce(sum(channel_sum(torch.square(_owned(pre, g).float() - c)) for (_, pre), g in zip(acts, geoms)))
+        stats.append((mean, (var / n_el).float()))
     return stats
 
 
@@ -139,13 +147,15 @@ def _accumulate(params, grads) -> None:
         p.grad = g.clone() if p.grad is None else p.grad + g
 
 
-def _bn_pass_c(enh: Enhancer, enh_in, stats, e_stats, geoms, *, slice_h: int, n_el: int, dtype) -> None:
+def _bn_pass_c(enh: Enhancer, enh_in, stats, e_stats, geoms, *, slice_h: int, n_el: int, dtype,
+               reduce=_local) -> None:
     """The stats -> parameters chain: adds to the ``.grad`` of the
     Enhancer's in_conv, block conv and BatchNorm scale and shift the terms
     that reach them through the batch statistics, whose total cotangents
-    pass B left in ``e_stats``. Each band keeps its three fea_k; pre_k =
-    conv(fea_k) is computed again where it is needed, which halves what the
-    pass holds at once."""
+    pass B left in ``e_stats`` (summed over every band). Each band keeps its
+    three fea_k; pre_k = conv(fea_k) is computed again where it is needed,
+    which halves what the pass holds at once. ``reduce``: as in pass A, for
+    the statistics' cotangents from the BatchNorm path."""
     conv, bn = enh.conv[0], enh.conv[1]
     stats = [tuple(s.detach() for s in pair) for pair in stats]
     feas = []
@@ -158,10 +168,11 @@ def _bn_pass_c(enh: Enhancer, enh_in, stats, e_stats, geoms, *, slice_h: int, n_
             del acts
     cot_fea = [torch.zeros_like(f[0]) for f in feas]
     for k in (2, 1, 0):
-        c_mean, c_var = (e.clone() for e in e_stats[k])
+        c_mean, c_var = e_stats[k]
         cot_pre_bn = [None] * len(geoms)  # use 2's output feeds no statistic: no BatchNorm-path cotangent
         if k < 2:
             mean, var = (s.clone().requires_grad_(True) for s in stats[k])
+            d_mean = d_var = 0.0
             for b in range(len(geoms)):
                 # the BatchNorm path fea_{k+1} = fea_k + relu(BN(pre_k)): elementwise
                 with torch.no_grad():
@@ -169,8 +180,9 @@ def _bn_pass_c(enh: Enhancer, enh_in, stats, e_stats, geoms, *, slice_h: int, n_
                 pre.requires_grad_(True)
                 y = torch.relu(batch_norm_with(bn, pre, mean, var))
                 dm, dv, ds, db, cot_pre_bn[b] = torch.autograd.grad(y, (mean, var, bn.weight, bn.bias, pre), cot_fea[b])
-                c_mean, c_var = c_mean + dm, c_var + dv
+                d_mean, d_var = d_mean + dm, d_var + dv
                 _accumulate((bn.weight, bn.bias), (ds, db))
+            c_mean, c_var = c_mean + reduce(d_mean), c_var + reduce(d_var)
         cot_s1 = (c_mean / n_el).view(1, -1, 1, 1)
         cot_s2 = (c_var / n_el).view(1, -1, 1, 1)
         for b, g in enumerate(geoms):
@@ -210,11 +222,38 @@ def spatial_loss_and_grads(
     the full frame's batch statistics). The equivalence tests read the
     gradients here: Adam's normalised step turns rounding-level gradient
     differences into whole-lr parameter differences."""
+    frame = _norm_frames(frame, state.model.device)
+    slice_h, geoms = band_geometry(frame.shape[1], bands, halo)
+    loss, h3, s3 = bands_loss_and_grads(
+        state, frame, is_new_seq, geoms, slice_h=slice_h, n_el=frame[..., 0].numel(), of_scale=of_scale,
+        raft_iters=raft_iters, is_wb=is_wb, bn_train=bn_train,
+    )
+    return loss, {"last_H3": torch.cat(h3, 1).contiguous(), "last_s3": torch.cat(s3, 1).contiguous()}
+
+
+def bands_loss_and_grads(
+    state: TrainState,
+    frame: torch.Tensor,
+    is_new_seq,
+    geoms: list[tuple[int, int, int]],
+    *,
+    slice_h: int,
+    n_el: int,
+    of_scale: int,
+    raft_iters: int,
+    is_wb: bool,
+    bn_train: bool,
+    reduce=_local,
+) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
+    """``spatial_loss_and_grads`` on the bands ``geoms`` of a frame on the
+    model's device: (the bands' summed loss, and per band the owned rows of
+    H3 and of s3). ``n_el``: the values a channel's batch statistics count;
+    ``reduce``: the sum of a statistic's (C,) sums, or of their cotangents,
+    over the processes that hold the other bands. A multi-device step
+    (``parallel/spmd_train.py``) runs its rank's band with a world
+    all-reduce here; one process runs every band with none."""
     model = state.model
     dev = model.device
-    frame = _norm_frames(frame, dev)
-    h = frame.shape[1]
-    slice_h, geoms = band_geometry(h, bands, halo)
     dtype = model.dtype
     with numerics(model.precision):
         w6, enh_in, factor, ycc = _flow_phase(
@@ -222,9 +261,8 @@ def spatial_loss_and_grads(
             of_scale=of_scale, raft_iters=raft_iters, is_wb=is_wb,
         )
         stats = None
-        n_el = frame.shape[0] * h * frame.shape[2]
         if bn_train:
-            stats = _bn_pass_a(model.enhance, enh_in, geoms, slice_h=slice_h, n_el=n_el, dtype=dtype)
+            stats = _bn_pass_a(model.enhance, enh_in, geoms, slice_h=slice_h, n_el=n_el, dtype=dtype, reduce=reduce)
             for mean, var in stats:
                 move_running_stats(model.enhance.conv[1], mean, var, n_el)
             stats = [tuple(s.clone().requires_grad_(True) for s in pair) for pair in stats]
@@ -236,9 +274,10 @@ def spatial_loss_and_grads(
             h3.append(H3_b)
             s3.append(s3_b)
         if bn_train:
-            e_stats = [tuple(s.grad for s in pair) for pair in stats]
-            _bn_pass_c(model.enhance, enh_in, stats, e_stats, geoms, slice_h=slice_h, n_el=n_el, dtype=dtype)
-    return loss, {"last_H3": torch.cat(h3, 1).contiguous(), "last_s3": torch.cat(s3, 1).contiguous()}
+            e_stats = [tuple(reduce(s.grad) for s in pair) for pair in stats]
+            _bn_pass_c(model.enhance, enh_in, stats, e_stats, geoms, slice_h=slice_h, n_el=n_el, dtype=dtype,
+                       reduce=reduce)
+    return loss, h3, s3
 
 
 def train_step_spatial(
