@@ -104,7 +104,25 @@ zero_tig_torch/csrc from the checkout, then:
      each precision and schedule; then (d) one NCCL rank (world size 1,
      through make_mesh) takes a training step, held against train_step, and
      times predict_step alone; (e) predict --mesh_data 2 must write PNGs
-     byte-equal to the single-process CLI's; (f) each run's backend.
+     byte-equal to the single-process CLI's; (f) each run's backend;
+ 12. drives the flow sidecar (zero_tig_torch/flowtools) on seeded weights
+     and a fixture made here (textured frames moved by a known smooth flow,
+     .flo ground truth, Sintel layout at 436x1024 and KITTI at 375x1242):
+     K1 against its twin and timed, and the GRU kernel timed, at RAFT's
+     update-core grid of each operating point (63x125, 55x128, 47x156);
+     (a) benchmark_model of lk_pyramid, pwc_lite, raft and raft_small at
+     500x1000 in both precisions (median ms, parameters, FLOPs, peak
+     bytes); (b) RAFT's launches on one Sintel pair through infer_pair,
+     counted from 0 (12 x (9 K1 + 4 GRU) + 2 K1), and each model on the
+     card against its plain version on the CPU on that pair in highest
+     mode; (c) validate_folder (RAFT, PWC-lite card against CPU, LK against
+     the known flow) and the Sintel and KITTI submissions read back against
+     the flow in memory; the benchmark and demo CLIs (python -m) run beside
+     (b) and (c), the demo's flow PNGs equal to flow_to_image of the
+     registry's RAFT; (d) flow training on FlowAugmentor's 368x496 crops,
+     batch 4: RAFT 1 warm-up + 3 timed steps a precision (ms/step, peak
+     memory, the loss falling on one fixed batch), raft_small and pwc_lite
+     2 steps, and RAFT's first step at 96x128 on the card against the CPU.
 
 Before phase 2 it prints one line on whether the native frame pipeline
 (zero_tig_torch/native/frameio.cc, libpng and libjpeg) builds and loads;
@@ -127,6 +145,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -148,7 +167,17 @@ from zero_tig_torch.cli import train as cli_train
 from zero_tig_torch.core import precision
 from zero_tig_torch.core.checkpoint import save_pt
 from zero_tig_torch.core.config import Config
-from zero_tig_torch.data import create_dataset, make_rlv_fixture
+from zero_tig_torch.data import FlowAugmentor, create_dataset, make_rlv_fixture
+from zero_tig_torch.flowtools import (
+    benchmark_model,
+    flow_train_step,
+    get_flow_model,
+    infer_pair,
+    init_flow_train_state,
+    validate_folder,
+    write_kitti_submission,
+    write_sintel_submission,
+)
 from zero_tig_torch.kernels import build
 from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
 from zero_tig_torch.models import build_model, init_random_state_dict, init_state_dict
@@ -160,6 +189,9 @@ from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
 from zero_tig_torch.ops.equalize import equalize01, equalize01_reference, equalize_u8, equalize_u8_reference
 from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference, k1_plan, launch_k1
 from zero_tig_torch.pipeline.spatial import spatial_loss_and_grads, train_step_spatial
+from zero_tig_torch.utils.flow_io import read_flo, read_flow_kitti, write_flo
+from zero_tig_torch.utils.flow_viz import flow_to_image
+from zero_tig_torch.utils.misc import resize_u8
 from zero_tig_torch.pipeline.steps import (
     init_carry,
     init_train_state,
@@ -169,6 +201,7 @@ from zero_tig_torch.pipeline.steps import (
     train_step,
 )
 
+REPO = Path(__file__).resolve().parent
 H, W, OF_SCALE, ITERS, CHUNK = 1080, 1920, 3, 12, 8
 HR, WR = 45, 80  # RAFT grid: (1080/3, 1920/3) padded to /8, over 8
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
@@ -1729,6 +1762,347 @@ def phase11_multidevice(sd, report, smi, main_ms: float) -> None:
     report["multidevice"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the flow sidecar at its operating points
+
+# RAFT's update-core grid at each of the sidecar's operating points: the
+# frame padded to /8, over 8
+FLOW_GRIDS = {"500x1000": (63, 125), "Sintel 436x1024": (55, 128), "KITTI 375x1242": (47, 156)}
+FLOW_MODELS = ("lk_pyramid", "pwc_lite", "raft", "raft_small")
+RAFT_K1_LAYERS = [layer for layer in K1_LAYERS if layer[0].startswith("raft.")]
+K1_PER_PAIR = sum(layer[-1] for layer in RAFT_K1_LAYERS)  # 12 x 9 in the update core + 2 in the mask head
+GRU_PER_PAIR = 4 * ITERS
+SINTEL, KITTI = (436, 1024), (375, 1242)
+
+
+def known_flow(h: int, w: int) -> np.ndarray:
+    """The fixture's smooth flow, (h, w, 2) px: 1.5 +- 0.5 across, -0.75 +- 0.5 down."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    return np.stack([1.5 + 0.5 * np.sin(2 * np.pi * y / h), -0.75 + 0.5 * np.cos(2 * np.pi * x / w)], -1)
+
+
+def textured_frame(h: int, w: int, phases: np.ndarray, shift: np.ndarray) -> np.ndarray:
+    """A smooth RGB texture at p - shift(p), uint8: frame k of the fixture is
+    the texture moved by k times the known flow, so frame k+1 at x + f(x)
+    shows frame k at x to within f . grad f (< 0.06 px here)."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    xx, yy = x - shift[..., 0], y - shift[..., 1]
+    chans = [127 + 50 * np.sin(xx / 5.3 + p[0]) * np.cos(yy / 7.1 + p[1]) + 40 * np.sin((xx + 2 * yy) / 11.7 + p[2])
+             + 20 * np.sin((3 * xx - yy) / 23.0) for p in phases]
+    return np.clip(np.stack(chans, -1), 0, 255).astype(np.uint8)
+
+
+def write_flow_fixture(root: Path) -> dict:
+    """Sintel layout (clean/alley/frame_0001-0004.png, flow/alley/frame_0001-0003.flo
+    at 436x1024) and KITTI layout (image_2/000000_10.png, _11.png at
+    375x1242), from SEED."""
+    phases = np.random.default_rng(SEED).uniform(0, 2 * np.pi, (3, 3))
+    paths = {"clean": root / "sintel" / "clean" / "alley", "flow": root / "sintel" / "flow" / "alley",
+             "kitti": root / "kitti" / "image_2"}
+    for p in paths.values():
+        p.mkdir(parents=True)
+    f = known_flow(*SINTEL)
+    for k in range(4):
+        native.write_png(paths["clean"] / f"frame_{k + 1:04d}.png", textured_frame(*SINTEL, phases, k * f))
+        if k < 3:
+            write_flo(str(paths["flow"] / f"frame_{k + 1:04d}.flo"), f.astype(np.float32))
+    fk = known_flow(*KITTI)
+    for k, name in enumerate(("000000_10.png", "000000_11.png")):
+        native.write_png(paths["kitti"] / name, textured_frame(*KITTI, phases, k * fk))
+    return paths
+
+
+def read_frame(path, device: str) -> torch.Tensor:
+    return torch.from_numpy(native.read_rgb(path).astype(np.float32)[None]).to(device)
+
+
+def phase12_k1_grids(gen, out) -> dict:
+    """K1 against its twin and timed at RAFT's update-core grid of each
+    operating point (bf16 and f32 operands; tolerances as phase 2), and the
+    GRU kernel timed there: ms per pair beside the bound, the twin and the
+    library, as phase 5 at 45x80."""
+    fm = get_flow_model("raft")
+    models = {"bf16": fm.init_fn(SEED, device="cuda"), "f32": fm.init_fn(SEED, device="cuda")}
+    models["bf16"].prepare(torch.bfloat16)
+    models["f32"].prepare(torch.float32)
+    grids = {}
+    for label, grid in FLOW_GRIDS.items():
+        row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+        bounds = []
+        for base in RAFT_K1_LAYERS:
+            layer = base[:3] + (grid,) + base[4:]
+            name = layer[0]
+            for mode, model in models.items():
+                cw = model.update_block.kw[layer[1][1]]
+                xs, kwargs = k1_inputs(layer, cw.w.dtype, gen)
+                with precision.numerics("highest"):
+                    got = fused_conv(xs, cw, **kwargs).float()
+                    ref = fused_conv_reference(xs, cw, **kwargs).float()
+                    torch.cuda.synchronize()
+                atol, rtol = (1e-2, 1e-2) if mode == "bf16" else (1e-4, 1e-4)
+                err = float((got - ref).abs().max())
+                bad = float(((got - ref).abs() - (atol + rtol * ref.abs())).max())
+                if not (bool(torch.isfinite(got).all()) and bad <= 0):
+                    fail(f"K1 {name} {mode} at {grid} disagrees with its twin: max_abs_err {err}")
+                if mode == "bf16":
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    ms = graph_ms(lambda: fused_conv(xs, cw, **kwargs))
+                    plain = graph_ms(lambda: fused_conv_reference(xs, cw, **kwargs))
+                    x_cl = torch.cat(xs, -1).permute(0, 3, 1, 2)
+                    w_cl = cw.w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                    pad = ((cw.w.shape[0] - 1) // 2, (cw.w.shape[1] - 1) // 2)
+                    lib = graph_ms(lambda: F.conv2d(x_cl, w_cl, cw.shift.to(cw.w.dtype), padding=pad))
+                    bound, _, by = k1_bound_ms(layer, cw)
+                    n = layer[-1]
+                    row["ms"] += ms * n
+                    row["plain_ms"] += plain * n
+                    row["library_ms"] += lib * n
+                    row["bound_ms"] += bound * n
+                    bounds.append((bound * n, by))
+        row["bound_by"] = max(bounds)[1]
+        # the GRU kernel: the four launches of one iteration at this grid
+        dt = torch.bfloat16
+        hr, wr = grid
+        zr = torch.rand(1, hr, wr, 256, generator=gen, device="cuda")
+        q = torch.rand(1, hr, wr, 128, generator=gen, device="cuda") * 2 - 1
+        net = (torch.rand(1, hr, wr, 128, generator=gen, device="cuda") * 2 - 1).to(dt)
+        net_f = net.float()
+        for a, b in zip(gru.gru_update(zr, q, net, (torch.float32, dt)),
+                        gru.gru_update_reference(zr, q, net, (torch.float32, dt))):
+            tol = 2.0**-7 if a.dtype == dt else 1e-6
+            if not float((a.float() - b.float()).abs().max()) <= tol:
+                fail(f"GRU kernel at {grid} disagrees with its twin")
+
+        def four(reset, update):
+            def run():
+                reset(zr, net, dt)
+                update(zr, q, net, (torch.float32, dt))
+                reset(zr, net_f, dt)
+                update(zr, q, net_f, (dt,))
+            return run
+
+        n = hr * wr * 128
+        gru_bytes = n * (4 + 2 + 2) + n * (4 + 4 + 2 + 4 + 2) + n * (4 + 4 + 2) + n * (4 + 4 + 4 + 2)
+        row["gru_ms"] = graph_ms(four(gru.gru_reset, gru.gru_update)) * ITERS
+        row["gru_plain_ms"] = graph_ms(four(gru.gru_reset_reference, gru.gru_update_reference)) * ITERS
+        row["gru_bound_ms"] = gru_bytes / PEAK_BYTES * 1e3 * ITERS
+        grids[label] = row
+        print(f"phase 12 K1 at RAFT grid {grid} ({label}), {K1_PER_PAIR} launches a pair: ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}), bf16 max_abs_err={row['max_abs_err']:.3e} (f32 too, tol as phase 2); "
+              f"GRU {GRU_PER_PAIR} launches: ms={row['gru_ms']:.4f} plain_ms={row['gru_plain_ms']:.4f} "
+              f"bound_ms={row['gru_bound_ms']:.5f} (bytes); CUDA-graph device time", flush=True)
+    out["k1_gru_grids"] = grids
+    return grids
+
+
+def phase12_flow_sidecar(report, smi, gen) -> dict:
+    """The flow sidecar: (a) benchmark_model of each model at 500x1000 in
+    both precisions and the benchmark CLI; (b) each model on the card
+    against its plain version on the CPU on one 436x1024 pair, and RAFT's
+    launches a pair counted through infer_pair; (c) validate_folder and the
+    Sintel and KITTI submissions; (d) flow training at RAFT's FlyingChairs
+    stage; (e) the demo CLI and the benchmark CLI, run beside (b) and (c).
+    Returns the counted path's launches."""
+    out: dict = {"device": smi}
+    grids = phase12_k1_grids(gen, out)
+    tmp = Path(tempfile.mkdtemp(prefix="zt_flow_"))
+    try:
+        paths = write_flow_fixture(tmp)
+        frames = sorted(paths["clean"].glob("*.png"))
+        gts = sorted(paths["flow"].glob("*.flo"))
+        # (a) benchmark at the reference's operating point
+        rows = []
+        for name in FLOW_MODELS:
+            for mode in ("fast", "highest"):
+                r = benchmark_model(name, precision=mode, seed=SEED, device="cuda")
+                ok = math.isfinite(r["time_ms_median"]) and r["time_ms_median"] > 0 and (
+                    name == "lk_pyramid" or (r["flops"] > 0 and r["params"] > 0))
+                print(f"phase 12 benchmark {name:10s} {mode:7s} 500x1000 iters={r['iters']}: "
+                      f"time_ms_median={r['time_ms_median']:.3f} mean={r['time_ms_mean']:.3f} params={r['params']} "
+                      f"flops={r['flops']:.4g} peak_bytes={r['peak_bytes']} on {smi}", flush=True)
+                if not ok:
+                    fail(f"benchmark of {name} ({mode}) gave {r}")
+                rows.append(r)
+        out["benchmark"] = rows
+
+        # the CLIs run beside this process through (b) and (c), which time
+        # nothing: the benchmark CLI on one model, the demo on the fixture's
+        # 4 frames at its defaults (640x360, 15 iterations, a seeded RAFT)
+        demo_dir, csv_path = tmp / "demo", tmp / "bench.csv"
+        clis = [subprocess.Popen([sys.executable, "-m", mod, *argv], cwd=REPO, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                for mod, argv in (("zero_tig_torch.cli.demo", ["--path", str(paths["clean"]), "--save", str(demo_dir)]),
+                                  ("zero_tig_torch.flowtools.benchmark",
+                                   ["--models", "pwc_lite", "--num_samples", "2", "--output_csv", str(csv_path)]))]
+
+        # (b) one Sintel pair: the counted path (infer_pair, RAFT), then each
+        # model on the card against its plain version on the CPU, highest
+        i1, i2 = read_frame(frames[0], "cuda"), read_frame(frames[1], "cuda")
+        raft = get_flow_model("raft").init_fn(SEED, device="cuda")
+        infer_pair("raft", raft, str(frames[0]), str(frames[1]), device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        build.reset_counts()
+        pair = infer_pair("raft", raft, str(frames[0]), str(frames[1]), gt_flow_path=str(gts[0]), device="cuda")
+        torch.cuda.synchronize()
+        side = dict(build.COUNTS)
+        want = {"fused_conv": K1_PER_PAIR, "gru": GRU_PER_PAIR, "equalize_u8": 0, "conv3x3_bf16": 0}
+        print(f"phase 12 counted path: infer_pair('raft') on one 436x1024 pair launches {side} "
+              f"(expected {want}); its EPE against the fixture's flow {pair['epe']:.3f} (random weights)", flush=True)
+        if side != want:
+            fail("the sidecar's RAFT pair launched other counts than 12 x (9 + 4) + 2")
+        out["launches_per_pair"] = side
+        cmp = {}
+        for name in FLOW_MODELS:
+            fm = get_flow_model(name)
+            card = raft if name == "raft" else fm.init_fn(SEED, device="cuda")
+            cpu = fm.init_fn(SEED, device="cpu")
+            got = fm.forward_fn(card, i1, i2, fm.default_iters, "highest")[1].cpu()
+            ref = fm.forward_fn(cpu, i1.cpu(), i2.cpu(), fm.default_iters, "highest")[1]
+            d = (got - ref).abs()
+            err, scale = float(d.max()), float(ref.abs().max())
+            if name == "lk_pyramid":
+                # the Shi-Tomasi gate flips on a rounding at a pixel whose
+                # eigenvalue sits at its threshold, and that pixel takes or
+                # skips a whole step (up to 2 px), which the next levels
+                # spread (tests/test_torch_flow_models.py): count those pixels
+                off = float((d.amax(-1) > 1e-3).float().mean())
+                ok, tol = off <= 0.01, f"<= 1% of pixels beyond 1e-3 px (here {off:.4%})"
+            else:
+                # f32 on both sides (TF32 off), sums in another order through the iterations
+                ok, tol = err <= 1e-3 * scale + 1e-4, "1e-3 * max|flow| + 1e-4"
+            ok = ok and bool(torch.isfinite(got).all()) and got.shape == ref.shape
+            print(f"phase 12 card vs CPU {name:10s} 436x1024 highest iters={fm.default_iters}: max_abs_err={err:.3e} "
+                  f"max|flow|={scale:.3g} tol {tol} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{name} on the card disagrees with its plain version on the CPU")
+            cmp[name] = {"max_abs_err": err, "max_flow": scale}
+        out["card_vs_cpu"] = cmp
+
+        # (c) validation and submissions
+        val = {}
+        for name in ("raft", "pwc_lite", "lk_pyramid"):
+            fm = get_flow_model(name)
+            card = raft if name == "raft" else fm.init_fn(SEED, device="cuda")
+            val[name] = validate_folder(name, card, str(paths["clean"]), str(paths["flow"]), device="cuda",
+                                        csv_path=str(tmp / f"{name}.csv"))
+        val["pwc_lite_cpu"] = validate_folder("pwc_lite", get_flow_model("pwc_lite").init_fn(SEED, device="cpu"),
+                                              str(paths["clean"]), str(paths["flow"]), device="cpu")
+        for name, agg in val.items():
+            print(f"phase 12 validate_folder {name:12s} Sintel fixture: {agg}", flush=True)
+            if agg.get("num_pairs") != 3 or not all(math.isfinite(agg[k]) for k in ("epe", "fl_all", "px1", "wauc")):
+                fail(f"validate_folder({name}) gave {agg}")
+        a, b = val["pwc_lite"], val["pwc_lite_cpu"]
+        # f32 both sides: the means to 1e-3 of themselves; a threshold count
+        # may move by a pixel or two of 446k a pair at its threshold
+        if not (abs(a["epe"] - b["epe"]) <= 1e-3 * b["epe"] and abs(a["wauc"] - b["wauc"]) <= 1e-3 * b["wauc"]
+                and abs(a["fl_all"] - b["fl_all"]) <= 0.01 and abs(a["px1"] - b["px1"]) <= 1e-4):
+            fail("validate_folder(pwc_lite) on the card and the CPU disagree")
+        if not val["lk_pyramid"]["epe"] < 0.5:  # the known flow, |f| ~1.7 px: the limit set before the first run
+            fail(f"lk_pyramid misses the fixture's known flow: EPE {val['lk_pyramid']['epe']}")
+        out["validate"] = val
+
+        n_s = write_sintel_submission("raft", raft, str(tmp / "sintel" / "clean"), str(tmp / "sub_sintel"), device="cuda")
+        n_k = write_kitti_submission("raft", raft, str(paths["kitti"]), str(tmp / "sub_kitti"), device="cuda")
+        fm = get_flow_model("raft")
+        mem = fm.forward_fn(raft, i1, i2, 12, "highest")[1][0].cpu().numpy()
+        flo = read_flo(str(tmp / "sub_sintel" / "alley" / "frame_0001.flo"))
+        k1_, k2_ = (read_frame(paths["kitti"] / n, "cuda") for n in ("000000_10.png", "000000_11.png"))
+        mem_k = fm.forward_fn(raft, k1_, k2_, 12, "highest")[1][0].cpu().numpy()
+        kitti, valid = read_flow_kitti(str(tmp / "sub_kitti" / "000000_10.png"))
+        kerr = float(np.abs(kitti - mem_k).max())
+        print(f"phase 12 submissions: {n_s} Sintel .flo (frame_0001 equal to the flow in memory: "
+              f"{np.array_equal(flo, mem)}), {n_k} KITTI PNG {kitti.shape} (max |file - memory| {kerr:.4f} px, "
+              f"limit 1/64 px)", flush=True)
+        if n_s != 3 or n_k != 1 or not np.array_equal(flo, mem) or not kerr < 1 / 64 or not np.all(valid == 1):
+            fail("a submission file does not read back as the flow in memory")
+
+        # (e) the CLIs started after (a): done before (d) times anything
+        for proc, label in zip(clis, ("demo", "benchmark")):
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                print(log[-3000:], flush=True)
+                fail(f"python -m zero_tig_torch ... {label} exited {proc.returncode}")
+        with open(csv_path) as f:
+            csv_rows = f.read().splitlines()
+        if len(csv_rows) != 2 or "pwc_lite" not in csv_rows[1]:
+            fail(f"the benchmark CLI's CSV holds {csv_rows}")
+        names = sorted(p.name for p in demo_dir.iterdir())
+        want_names = sorted(f"frame_{k:04d}_{kind}.png" for k in (2, 3, 4) for kind in ("flow", "overlap"))
+        if names != want_names:
+            fail(f"the demo wrote {names}, not {want_names}")
+        seeded = get_flow_model("raft").init_fn(0, device="cuda")
+        for k in range(3):
+            a_, b_ = (torch.from_numpy(resize_u8(native.read_rgb(frames[j]), (360, 640)).astype(np.float32)[None]).cuda()
+                      for j in (k, k + 1))
+            want_img = flow_to_image(get_flow_model("raft").forward_fn(seeded, a_, b_, 15, "highest")[1][0].cpu().numpy())
+            got_img = native.read_rgb(demo_dir / f"frame_{k + 2:04d}_flow.png")
+            if not np.array_equal(got_img, want_img):
+                fail(f"the demo's flow PNG of pair {k} differs from flow_to_image of the registry's RAFT")
+        print(f"phase 12 CLIs: the benchmark CLI wrote its CSV ({csv_rows[1][:60]}...); the demo wrote "
+              f"{len(names)} PNGs at 640x360, each _flow.png equal to flow_to_image of the registry's RAFT", flush=True)
+        # (d) flow training at RAFT's FlyingChairs stage: 368x496 crops through
+        # FlowAugmentor, batch 4, 12 iterations, gamma 0.8, lr 4e-4, wd 1e-4,
+        # clip 1, the one-cycle schedule over 1000 steps
+        f_np = read_flo(str(gts[0]))
+        aug = FlowAugmentor(crop_size=(368, 496), seed=SEED)
+        crops = [aug(native.read_rgb(frames[0]), native.read_rgb(frames[1]), f_np) for _ in range(4)]
+        batch = [torch.from_numpy(np.stack([c[j] for c in crops]).astype(np.float32)).cuda() for j in range(3)]
+        train = {}
+        for name, mode, steps in (("raft", "fast", 4), ("raft", "highest", 4), ("raft_small", "fast", 2),
+                                  ("pwc_lite", "fast", 2)):
+            fm = get_flow_model(name)
+            state = init_flow_train_state(fm.init_fn(SEED, device="cuda"), lr=4e-4, total_steps=1000)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, loss = flow_train_step(state, *batch, iters=fm.default_iters, gamma=0.8, lr=4e-4,
+                                              total_steps=1000, predictions_fn=fm.predictions_fn, precision=mode)
+                losses.append(float(loss))  # a sync
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            ms = statistics.median(times[1:])
+            print(f"phase 12 flow training {name:10s} {mode:7s} batch 4 368x496 iters={fm.default_iters}: "
+                  f"losses {[round(v, 4) for v in losses]}, {ms:.1f} ms/step (median of {len(times) - 1} after "
+                  f"a warm-up), peak {peak:.2f} GB on {smi}", flush=True)
+            # the schedule's first steps (lr 1.6e-5 rising 7.7e-6 a step): in f32
+            # RAFT's loss must fall on one fixed batch; a bf16 weight does not
+            # see every such step
+            if not all(math.isfinite(v) for v in losses) or (
+                    (name, mode) == ("raft", "highest") and not losses[-1] < losses[0]):
+                fail(f"flow training of {name} ({mode}): losses {losses}")
+            train[f"{name}_{mode}"] = {"losses": losses, "ms_per_step": ms, "step_ms": times, "peak_gb": peak}
+        # the first step at 96x128, 4 iterations, highest: card against CPU
+        small = [t[:, :96, :128].contiguous() for t in batch]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state = init_flow_train_state(get_flow_model("raft").init_fn(SEED, device=dev), lr=4e-4, total_steps=100)
+            before = [p.detach().clone() for p in state.model.parameters()]
+            state, loss = flow_train_step(state, *(t.to(dev) for t in small), iters=4, total_steps=100)
+            delta = torch.cat([(p.detach() - b).flatten() for p, b in zip(state.model.parameters(), before)])
+            res[dev] = (float(loss), delta.cpu())
+        (lc, dc), (lh, dh) = res["cuda"], res["cpu"]
+        loss_err = abs(lc - lh) / abs(lh)
+        cos = float(torch.dot(dc, dh) / (dc.norm() * dh.norm()))
+        # AdamW normalises the step: a gradient at rounding level moves its
+        # weight by +-lr whichever sign it rounds to, so the update is held
+        # by its cosine, as phase 4 holds Zero-TIG's
+        ok = math.isfinite(lc) and loss_err <= 1e-4 and cos >= 0.999
+        print(f"phase 12 flow training step 96x128 iters=4 highest card vs CPU: loss rel err={loss_err:.3e} "
+              f"(tol 1e-4), update cosine={cos:.6f} (tol >= 0.999) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("the flow training step on the card disagrees with the CPU")
+        train["card_vs_cpu"] = {"loss_rel_err": loss_err, "update_cosine": cos}
+        out["training"] = train
+
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["flow_sidecar"] = out
+    return side
+
+
 def frameio_build_line() -> str:
     """One line of information, not a phase: whether the native frame
     pipeline (host C++, libpng and libjpeg) builds where the script runs."""
@@ -1777,17 +2151,21 @@ def main() -> int:
     del fast, highest
     phase7_training(sd, report, smi)
     phase8_cli(sd, report, smi, report["main_path"]["ms_per_frame"])
+    sidecar: dict = {}
     for label, phase in (("9", lambda: phase9_serve(sd, report, smi, report["main_path"]["ms_per_frame"])),
                          ("10", lambda: phase10_banded(sd, report, smi)),
-                         ("11", lambda: phase11_multidevice(sd, report, smi, report["main_path"]["ms_per_frame"]))):
+                         ("11", lambda: phase11_multidevice(sd, report, smi, report["main_path"]["ms_per_frame"])),
+                         ("12", lambda: sidecar.update(phase12_flow_sidecar(report, smi, gen)))):
         t0 = time.perf_counter()
         phase()
         report[f"phase{label}_s"] = time.perf_counter() - t0
         print(f"phase {label} took {report[f'phase{label}_s']:.1f} s", flush=True)
 
+    # launches: the main path's (phases 3 and 6) and the flow sidecar's counted pair (phase 12)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": counts[name], "max_abs_err": errs[name], **times[name]}
+         "launches": counts[name] + sidecar[name], "max_abs_err": errs[name], **times[name],
+         "launches_by_path": {"main": counts[name], "flow_sidecar_pair": sidecar[name]}}
         for name in ("fused_conv", "gru", "equalize_u8", "conv3x3_bf16")
     ]
     report["kernels"] = kernels

@@ -110,13 +110,20 @@ def test_corr_pyramid_and_lookup_match_jax():
 
 
 def test_import_pulls_in_no_jax():
-    # nor flax, OpenCV or Pillow: the machine with the card has none of them
+    # nor flax, OpenCV, Pillow, optax or matplotlib: the machine with the
+    # card has none of them
+    banned = ("jax", "flax", "cv2", "PIL", "optax", "matplotlib")
     code = (
         "import sys, zero_tig_torch.pipeline.steps, zero_tig_torch.models, zero_tig_torch.data, zero_tig_torch.eval,"
         " zero_tig_torch.core.train_ckpt, zero_tig_torch.native, zero_tig_torch.native.frameio, chip_smoke;"
         "import zero_tig_torch.cli.train, zero_tig_torch.cli.predict, zero_tig_torch.cli.evals,"
         " zero_tig_torch.cli.run_pipeline, zero_tig_torch.cli.serve, zero_tig_torch.pipeline.spatial;"
-        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', 'PIL') or m.startswith(('jax.', 'flax.', 'zero_tig_tpu', 'cv2.', 'PIL.'))];"
+        "import zero_tig_torch.utils, zero_tig_torch.flowtools, zero_tig_torch.flowtools.benchmark,"
+        " zero_tig_torch.flowtools.train, zero_tig_torch.cli.demo, zero_tig_torch.eval.vmaf,"
+        " zero_tig_torch.data.augmentor, zero_tig_torch.models.pwc, zero_tig_torch.models.classical_flow,"
+        " zero_tig_torch.models.raft.small;"
+        f"banned = {banned!r};"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned or m.startswith('zero_tig_tpu')];"
         "assert not bad, bad"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -21,6 +21,7 @@ from .. import native
 from ..core.checkpoint import load_checkpoint, merge
 from ..core.config import Config
 from ..models import init_state_dict
+from ..utils.misc import count_parameters_in_mb  # noqa: F401  (the train CLI's model size line)
 
 
 def setup_logging(save_dir: str) -> logging.Logger:
@@ -47,12 +48,6 @@ def create_exp_dir(base: str) -> str:
     for script in glob.glob(os.path.join(os.path.dirname(__file__), "*.py")):
         shutil.copyfile(script, os.path.join(sdir, os.path.basename(script)))
     return path
-
-
-def count_parameters_in_mb(model: torch.nn.Module) -> float:
-    """Parameters in millions (utils/utils.py:81-82), each shared one once:
-    the number the JAX package counts over its network and RAFT trees."""
-    return sum(p.numel() for p in model.parameters()) / 1e6
 
 
 def load_state_dict(config: Config, *, for_training: bool = False, strict_raft: bool = False) -> dict:

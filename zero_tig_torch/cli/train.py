@@ -44,7 +44,8 @@ from ..parallel.mesh import Mesh, broadcast_object, shard_params
 from ..parallel.spmd_train import train_scenes_spmd
 from ..pipeline.spatial import train_step_spatial
 from ..pipeline.steps import eval_forward_step, init_carry, init_train_state, train_chunk, train_step
-from .common import count_parameters_in_mb, create_exp_dir, load_state_dict, setup_logging, write_png
+from ..utils.misc import count_parameters_in_mb
+from .common import create_exp_dir, load_state_dict, setup_logging, write_png
 
 
 def run_training(config: Config, *, device=None) -> str:

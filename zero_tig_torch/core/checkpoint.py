@@ -7,6 +7,8 @@ turns the JAX package's parameter trees (numpy arrays, HWIO kernels) into
 the reference's key names and OIHW weights, with the ``enhance.blocks.{0,1,2}``
 aliases of the shared block and both names of each RAFT ``norm3``. A real
 reference ``.pt`` has the same keys, so it loads with ``load_state_dict``.
+``from_jax_raft_small_variables`` and ``from_jax_pwc_variables`` do the same
+for the flow sidecar's small-RAFT and PWC-lite trees.
 
 ``load_checkpoint`` / ``save_pt`` / ``merge`` are the ``.pt`` side of
 ``load_torch_checkpoint`` (:201-209), ``save_torch_pt`` (:317-325) and
@@ -66,6 +68,38 @@ def from_jax_raft_variables(raft_vars: dict) -> dict[str, torch.Tensor]:
     out: dict[str, np.ndarray] = {}
     _raft(out, raft_vars)
     return {k: torch.as_tensor(np.array(v, copy=True)) for k, v in out.items()}
+
+
+def _conv_tree(out: dict, tree: dict, prefix: str) -> None:
+    """A JAX tree of convs ({'kernel' HWIO, 'bias'} leaves) -> state-dict
+    entries under ``prefix``: 'kernel' -> OIHW 'weight', 'layerN_M' ->
+    'layerN.M', 'downsample' -> 'downsample.0' (the reference's Sequential)."""
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            seg = re.sub(r"^layer(\d)_(\d)$", r"layer\1.\2", name)
+            _conv_tree(out, sub, prefix + ("downsample.0" if seg == "downsample" else seg) + ".")
+        elif name == "kernel":
+            out[prefix + "weight"] = _conv_back(sub)
+        else:
+            out[prefix + name] = np.asarray(sub)
+
+
+def _conv_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    out: dict[str, np.ndarray] = {}
+    _conv_tree(out, variables["params"], "")
+    return {k: torch.as_tensor(np.array(v, copy=True)) for k, v in out.items()}
+
+
+def from_jax_raft_small_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX small-RAFT {'params': {'fnet', 'cnet', 'update_block'}} (numpy
+    leaves) -> the state dict of ``models.raft.small.RAFTSmall``."""
+    return _conv_state_dict(variables)
+
+
+def from_jax_pwc_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX PWC-lite {'params': {'pyramid', 'estimator0-2', 'context'}} (numpy
+    leaves) -> the state dict of ``models.pwc.PWCLite``."""
+    return _conv_state_dict(variables)
 
 
 def _raft(out: dict, raft_vars: dict) -> None:

@@ -1,7 +1,8 @@
 """Frame datasets, the synthetic fixture and device staging.
 
-The exports of ``zero_tig_tpu/data/__init__.py`` (:1-42) but the flow
-sidecar's augmentors (ROADMAP.md queue 1 item 10)."""
+The exports of ``zero_tig_tpu/data/__init__.py`` (:1-42)."""
+
+from .augmentor import FlowAugmentor, SparseFlowAugmentor
 
 from .datasets import (
     DIDDataset,
@@ -25,6 +26,8 @@ from .synthetic import make_rlv_fixture
 
 __all__ = [
     "ChunkRecord",
+    "FlowAugmentor",
+    "SparseFlowAugmentor",
     "DIDDataset",
     "DeviceRecord",
     "FrameDataset",

@@ -1,6 +1,7 @@
 """Model construction: ``build_model``, ``init_state_dict`` (the CLIs'
-weights when no checkpoint is given) and ``init_random_state_dict`` (the
-tests' weights)."""
+weights when no checkpoint is given), ``init_weights`` (torch's defaults
+from a generator; the flow sidecar's models too) and
+``init_random_state_dict`` (the tests' weights)."""
 
 from __future__ import annotations
 
@@ -45,10 +46,22 @@ def init_state_dict(seed: int, *, for_training: bool = False) -> dict[str, torch
     the values are not (``jax.random`` is another generator), so the two
     packages share values only through a ``.pt``."""
     model = ZeroTIG("highest")
-    gens = {"net": torch.Generator().manual_seed(seed), "raft": torch.Generator().manual_seed(seed + 1)}
+    net = torch.Generator().manual_seed(seed)
+    for part in (model.enhance, model.denoise_1, model.denoise_2):
+        init_weights(part, net)
+    init_weights(model.raft, torch.Generator().manual_seed(seed + 1))
+    if for_training:
+        reinit_enhancer(model, torch.Generator().manual_seed(seed + 2))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def init_weights(model: nn.Module, key: int | torch.Generator) -> nn.Module:
+    """Draw ``model``'s weights in module order from ``key`` (a seed or a CPU
+    generator): every conv torch's ``Conv2d`` default, weight and bias
+    uniform in +-1/sqrt(fan_in); every BatchNorm at identity."""
+    gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
     with torch.no_grad():
-        for name, module in model.named_modules():  # a shared module once
-            gen = gens["raft" if name.startswith("raft.") else "net"]
+        for module in model.modules():  # a shared module once
             if isinstance(module, nn.Conv2d):
                 bound = 1.0 / math.sqrt(module.weight[0].numel())
                 module.weight.uniform_(-bound, bound, generator=gen)
@@ -56,9 +69,7 @@ def init_state_dict(seed: int, *, for_training: bool = False) -> dict[str, torch
                     module.bias.uniform_(-bound, bound, generator=gen)
             elif isinstance(module, nn.BatchNorm2d):
                 module.reset_parameters()
-    if for_training:
-        reinit_enhancer(model, torch.Generator().manual_seed(seed + 2))
-    return {k: v.clone() for k, v in model.state_dict().items()}
+    return model
 
 
 def init_random_state_dict(seed: int) -> dict[str, torch.Tensor]:

@@ -134,3 +134,12 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return F.conv2d(
         x.to(dtype), conv.weight.to(dtype), bias, conv.stride, conv.padding
     )
+
+
+def conv2d_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` (stride, padding and dilation its own) on NHWC ``x`` -> NHWC,
+    operands, bias and result in ``dtype``, as JAX's ``Conv`` in either mode."""
+    bias = conv.bias.to(dtype) if conv.bias is not None else None
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), bias,
+                 conv.stride, conv.padding, conv.dilation)
+    return y.permute(0, 2, 3, 1)

@@ -7,6 +7,12 @@ through the fnet as one batch; the refinement iterations are a Python loop
 whose core is K2 (``update.update_core``); the mask head runs once, after
 the loop, and the convex upsample gives the flow at the PADDED size (the
 reference never unpads; the warp absorbs the padded shape).
+
+``return_predictions=True`` is the training path (JAX :75-166): every
+iteration's convex-upsampled flow, differentiable, on the plain modules
+(``BasicUpdateBlock.forward``: library convolutions, no K1 and no GRU
+kernel), ``coords1`` detached at the top of each iteration and the mask head
+run each iteration. The cnet's BatchNorm stays on its running statistics.
 """
 
 from __future__ import annotations
@@ -50,11 +56,15 @@ class RAFT(nn.Module):
         self.update_block.prepare(dtype)
 
     def forward(
-        self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12
+        self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12, *,
+        return_predictions: bool = False, dtype: torch.dtype | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(flow_low, flow_up) between (B, H, W, 3) frames in [0, 255]."""
+        """(flow_low, flow_up) between (B, H, W, 3) frames in [0, 255]; with
+        ``return_predictions``, (flow_low, (iters, B, 8h, 8w, 2) flows).
+        ``dtype``: the training path's working dtype (the inference path
+        takes the one ``prepare`` set)."""
         ub = self.update_block
-        dtype = ub.dtype
+        dtype = ub.dtype if dtype is None else dtype
         image1 = 2.0 * (pad8_replicate(image1) / 255.0) - 1.0
         image2 = 2.0 * (pad8_replicate(image2) / 255.0) - 1.0
         b = image1.shape[0]
@@ -69,6 +79,15 @@ class RAFT(nn.Module):
         h8, w8 = net.shape[1], net.shape[2]
         coords0 = coords_grid(b, h8, w8, device=net.device)
         coords1 = coords0
+        if return_predictions:
+            ups = []
+            for _ in range(iters):
+                coords1 = coords1.detach()
+                corr = lookup_corr(levels, coords1, CORR_RADIUS)
+                net, mask, delta = ub(net, inp, corr, coords1 - coords0, dtype)
+                coords1 = coords1 + delta.float()
+                ups.append(convex_upsample_flow(coords1 - coords0, mask))
+            return coords1 - coords0, torch.stack(ups)
         for _ in range(iters):
             corr = lookup_corr(levels, coords1, CORR_RADIUS)
             flow = coords1 - coords0

@@ -19,6 +19,11 @@ every conv in the working dtype (bf16 in fast mode), f32 sums, gates and
 blend; net' stored in the working dtype, delta in f32. ``convf1`` (7x7 on 2
 channels) and ``convf2`` stay outside the core, as in JAX, as library
 convolutions. The mask head runs once after the loop, as 2 K1 launches.
+
+``BasicUpdateBlock.forward`` is the module path of JAX's
+``BasicUpdateBlock.__call__`` (update.py:156-162) with the mask head: library
+convolutions under autograd, for flow-model training, where neither K1 nor
+the GRU kernel (they have no backward) runs.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from torch import nn
 
 from ...ops.fused_conv import ConvWeights, conv_weights, fused_conv, prepare_conv
 from ...ops.gru import gru_reset, gru_update
-from ..layers import conv2d
+from ..layers import conv2d, conv2d_nhwc
 
 
 def _cat_out(a: ConvWeights, b: ConvWeights) -> ConvWeights:
@@ -98,6 +103,32 @@ class BasicUpdateBlock(nn.Module):
         x = torch.relu(conv2d(self.encoder.convf1, x, self.dtype))
         x = torch.relu(conv2d(self.encoder.convf2, x, self.dtype))
         return x.permute(0, 2, 3, 1).contiguous()
+
+    def forward(
+        self, net: torch.Tensor, inp: torch.Tensor, corr: torch.Tensor, flow: torch.Tensor, dtype: torch.dtype
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One iteration on the plain modules, differentiable: (net', mask,
+        delta), NHWC in and out, conv operands in ``dtype``. The dtypes
+        follow JAX's promotions: ``flow`` and the concatenations holding it
+        are f32, every conv's output, the gates and net' are in ``dtype``."""
+        enc, gru = self.encoder, self.gru
+        conv = lambda c, x: conv2d_nhwc(c, x, dtype)  # noqa: E731
+        flow = flow.float()
+        cor = torch.relu(conv(enc.convc2, torch.relu(conv(enc.convc1, corr))))
+        flo = torch.relu(conv(enc.convf2, torch.relu(conv(enc.convf1, flow))))
+        out = torch.relu(conv(enc.conv, torch.cat([cor, flo], -1)))
+        x = torch.cat([inp.float(), out.float(), flow], -1)
+        h = net
+        for n in "12":
+            hx = torch.cat([h.float(), x], -1)
+            z = torch.sigmoid(conv(getattr(gru, f"convz{n}"), hx))
+            r = torch.sigmoid(conv(getattr(gru, f"convr{n}"), hx))
+            q = torch.tanh(conv(getattr(gru, f"convq{n}"), torch.cat([(r * h).float(), x], -1)))
+            h = (1 - z) * h + z * q
+        fh = self.flow_head
+        delta = conv(fh.conv2, torch.relu(conv(fh.conv1, h)))
+        mask = 0.25 * conv(self.mask[2], torch.relu(conv(self.mask[0], h)))
+        return h, mask, delta
 
     def mask_head(self, net: torch.Tensor) -> torch.Tensor:
         """0.25 * mask_2(relu(mask_0(net))): (B, h, w, 576) convex-upsample logits."""
