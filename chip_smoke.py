@@ -13,7 +13,10 @@ zero_tig_torch/csrc from the checkout, then:
      Denoise_2 and RAFT-update layer in bf16, on its tensor-core kernel, and
      in f32, on its FMA kernel; the tensor-core kernel also where its tiling
      is ragged: Cout 2-126, odd channel parts, sizes off the tile, batch 2,
-     every tap shape and epilogue, on each tile shape; K2 on one update
+     every tap shape and epilogue, on each tile shape; the FMA kernel on
+     every branch of its f32 plan (FMA_CASES: the GRU concat, a 4-byte
+     aligned part, ragged H, W and Cout, batch 2, every tap shape and
+     epilogue), two launches bit-equal; K2 on one update
      iteration at 45x80 against the twins on the CPU; K3's three entries
      (equalize_u8; equalize01 on f32 and on bf16) exactly, at 360x640x3 on
      a uniform image with a constant channel, a low-light and an all-equal
@@ -27,13 +30,18 @@ zero_tig_torch/csrc from the checkout, then:
      traces one more chunk with torch.profiler and prints the device time
      per frame of each kernel by exact name and the device's idle share, and
      fails unless every K1 launch of the trace ran the tensor-core kernel;
+     then the same for the chunk in the default precision (highest: f32
+     operands, every K1 launch on the FMA kernel);
   4. runs the whole path at 96x128 (3 iterations) on the card and through
      the twins on the CPU, in both precisions, and compares; the same for 2
      training steps;
   5. times each kernel at its main-path shapes beside its bound, its twin
      and the library calls that compute the same function (cuDNN for K1
      and conv3x3_bf16; torch.mul / torch.lerp for the GRU kernel), K1 per
-     layer with the share of its bound it reaches, and the host's time for
+     layer with the share of its bound it reaches, in bf16 (fast model) and
+     in f32 (highest model; cuDNN's f32 convolution with TF32 off, the bound
+     at the f32 FMA peak; also RAFT's layers at the sidecar's 63x125 grid),
+     with sums per 1080p frame, 45x80 frame and 63x125 pair, the host's time for
      one K1 launch; K3's entries on a uniform and a low-light frame beside
      their plain chains and bounds. Work at full resolution is timed with
      CUDA events over back-to-back calls; work at the 45x80 RAFT grid and
@@ -187,7 +195,7 @@ from zero_tig_torch.models.raft.update import update_core
 from zero_tig_torch.ops import gru
 from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
 from zero_tig_torch.ops.equalize import equalize01, equalize01_reference, equalize_u8, equalize_u8_reference
-from zero_tig_torch.ops.fused_conv import ConvWeights, fused_conv, fused_conv_reference, k1_plan, launch_k1
+from zero_tig_torch.ops.fused_conv import ConvWeights, conv_weights, fused_conv, fused_conv_reference, k1_plan, launch_k1
 from zero_tig_torch.pipeline.spatial import spatial_loss_and_grads, train_step_spatial
 from zero_tig_torch.utils.flow_io import read_flo, read_flow_kitti, write_flo
 from zero_tig_torch.utils.flow_viz import flow_to_image
@@ -205,6 +213,7 @@ REPO = Path(__file__).resolve().parent
 H, W, OF_SCALE, ITERS, CHUNK = 1080, 1920, 3, 12, 8
 HR, WR = 45, 80  # RAFT grid: (1080/3, 1920/3) padded to /8, over 8
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12  # H100 SXM f32 FMA FLOP/s on the CUDA cores (no tensor cores)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 SEED = 0
 
@@ -240,13 +249,21 @@ K1_PER_FRAME = sum(layer[-1] for layer in K1_LAYERS)
 # convolutions under autograd): the update core and the mask head
 K1_PER_TRAIN_FRAME = sum(layer[-1] for layer in K1_LAYERS if layer[0].startswith("raft."))
 TRAIN_FRAMES = 4
+RAFT_K1_LAYERS = [layer for layer in K1_LAYERS if layer[0].startswith("raft.")]
+SIDECAR = (63, 125)  # RAFT's update grid at the flow sidecar's 500x1000
+# K1's f32 launches as phase 5 times them: a highest-mode frame's, and a
+# sidecar pair's at 63x125
+K1_F32_LAYERS = K1_LAYERS + [(f"{la[0]}@63x125", la[1], la[2], SIDECAR, *la[4:]) for la in RAFT_K1_LAYERS]
+GRID_LABELS = {FULL: "1080p", RAFT: "45x80", SIDECAR: "63x125"}
 # conv3x3_bf16's own path: (Cin, Cout) of its 1080p calls
 CONV3X3_CALLS = [(64, 64), (48, 48)]
 
+K1_SITES = ("zero_tig_tpu/ops/pack_conv.py:214 (conv3x3_packed), :394 (conv3x3_packed_multi), "
+            ":546 (residual1x1_packed), :491 (residual1x1_packed_multi); "
+            "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel convs)")
 REPLACES = {
-    "fused_conv": "zero_tig_tpu/ops/pack_conv.py:214 (conv3x3_packed), :394 (conv3x3_packed_multi), "
-    ":546 (residual1x1_packed), :491 (residual1x1_packed_multi); "
-    "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel convs)",
+    "fused_conv": K1_SITES + ", bf16 operands (fast mode)",
+    "fused_conv_f32": K1_SITES + ", f32 operands (highest mode)",
     "gru": "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel GRU gates)",
     "equalize_u8": "zero_tig_tpu/ops/pallas_equalize.py:112 (equalize_uint8_pallas)",
     "conv3x3_bf16": "zero_tig_tpu/ops/pallas_conv.py:125 (conv3x3_bf16)",
@@ -254,19 +271,27 @@ REPLACES = {
 # the kernels of csrc/*.cu by exact name, and the wrapper that launches each
 OWN_KERNELS = {
     "zt::fused_conv_mma_kernel": "fused_conv",  # bf16 operands: tensor cores
-    "zt::fused_conv_kernel": "fused_conv",  # f32 operands: FMAs
+    "zt::fused_conv_kernel": "fused_conv_f32",  # f32 operands: FMAs
     "zt::gru_reset_kernel": "gru",
     "zt::gru_update_kernel": "gru",
     "zt::equalize_kernel": "equalize_u8",  # both K3 entries: equalize_u8 and equalize01
 }
 SOURCES = {
-    "fused_conv": "zero_tig_torch/csrc/fused_conv_mma.cu (bf16 operands), "
-    "zero_tig_torch/csrc/fused_conv.cu (f32 operands)",
+    "fused_conv": "zero_tig_torch/csrc/fused_conv_mma.cu",
+    "fused_conv_f32": "zero_tig_torch/csrc/fused_conv.cu",
     "gru": "zero_tig_torch/csrc/gru.cu",
     "equalize_u8": "zero_tig_torch/csrc/equalize.cu",
     "conv3x3_bf16": "zero_tig_torch/csrc/fused_conv_mma.cu",
 }
 MMA, FMA = "zt::fused_conv_mma_kernel", "zt::fused_conv_kernel"
+KERNELS = ("fused_conv", "fused_conv_f32", "gru", "equalize_u8", "conv3x3_bf16")
+
+
+def launches(k1: int = 0, gru: int = 0, eq: int = 0, c3: int = 0, *, f32: bool = False) -> dict:
+    """The launch counts a path must show: K1's under fused_conv_f32 where
+    its operands are f32 (highest mode), under fused_conv where bf16."""
+    return {"fused_conv": 0 if f32 else k1, "fused_conv_f32": k1 if f32 else 0, "gru": gru, "equalize_u8": eq,
+            "conv3x3_bf16": c3}
 
 
 def fail(msg: str) -> None:
@@ -328,16 +353,18 @@ def k1_inputs(layer, dtype, gen):
 
 def k1_bound_ms(layer, cw) -> tuple[float, float, str]:
     """(bound ms, FLOP, what bounds it) of one K1 launch: the larger of its
-    FLOP at the bf16 tensor-core peak and its bytes (each input, weight and
-    output once) at the HBM rate. A residual is the layer's own input xs[0]
-    (the Enhancer block adds its input), so it adds no bytes."""
+    FLOP at the peak of its operands (bf16 tensor cores, or f32 FMAs on the
+    CUDA cores) and its bytes (each input, weight and output once) at the
+    HBM rate. A residual is the layer's own input xs[0] (the Enhancer block
+    adds its input), so it adds no bytes."""
     _, _, parts, (h, w), _, _, anchor, out_f32, _ = layer
     kh, kw, cin, cout = cw.w.shape
     esz = cw.w.element_size()
+    peak = PEAK_F32 if cw.w.dtype == torch.float32 else PEAK_BF16
     flops = 2.0 * h * w * cin * cout * kh * kw
     nbytes = h * w * (cin + sum(anchor)) * esz
     nbytes += cw.w.numel() * esz + h * w * cout * (4 if out_f32 else esz)
-    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), flops, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -401,6 +428,7 @@ def phase2_kernels(fast, highest, gen, report):
           f"max_abs_err={odd:.3e} tol=bf16 2^-6 + 2^-8*max|ref|, f32 1e-5 + 1e-5*max|ref| ok", flush=True)
 
     report["k1_mma_ragged_max_abs_err"] = k1_mma_ragged(gen)
+    report["k1_fma_ragged_max_abs_err"] = fma_err = k1_fma_ragged(gen)
 
     # K2: one update iteration at 45x80, kernels on the card vs twins on the CPU
     k2 = {}
@@ -475,8 +503,10 @@ def phase2_kernels(fast, highest, gen, report):
     report["conv3x3_bf16_checks"] = c3
 
     k1_bf16 = max(c["max_abs_err"] for c in k1 if c["mode"] == "bf16")
+    k1_f32 = max([c["max_abs_err"] for c in k1 if c["mode"] == "f32"] + [fma_err])
     c3_bf16 = max(v for k, v in c3.items() if k.endswith("bfloat16"))
-    return {"fused_conv": k1_bf16, "gru": gru_err, "equalize_u8": float(eq_err), "conv3x3_bf16": c3_bf16}
+    return {"fused_conv": k1_bf16, "fused_conv_f32": k1_f32, "gru": gru_err, "equalize_u8": float(eq_err),
+            "conv3x3_bf16": c3_bf16}
 
 
 def k3_cases(gen):
@@ -576,6 +606,83 @@ def k1_mma_ragged(gen) -> float:
     return worst
 
 
+# every branch of k1_plan's f32 choice (see fma_branch): (batch, h, w), input
+# parts, taps, Cout, epilogue
+FMA_CASES = [
+    ((2, 200, 528), (5, 7, 3, 1), (1, 1), 3, "anchor"),  # 1080p-like: a head
+    ((2, 200, 528), (6, 3, 3), (3, 3), 6, "f32"),
+    ((2, 200, 528), (20, 12, 32), (3, 3), 64, "residual"),  # 64 channels, 2 resident
+    ((2, 200, 528), (48,), (3, 3), 61, "anchor"),
+    ((2, 200, 528), (64,), (5, 1), 48, "leaky"),  # fewer channels, 1 resident
+    ((2, 201, 531), (9, 3), (3, 3), 20, "residual"),
+    ((1, 45, 80), (128, 128, 126, 2), (3, 3), 2, "f32"),  # the RAFT grids: a head
+    ((1, 45, 80), (128, 128, 126, 2), (1, 5), 256, "f32"),  # 64 channels, k-split
+    ((1, 63, 125), (128, 128, 126, 2), (1, 5), 256, "leaky"),  # 64 channels
+    ((1, 45, 80), (128, 128, 126, 2), (5, 1), 128, "f32"),  # 32 channels, k-split
+    ((1, 63, 125), (256,), (1, 1), 576, "residual"),  # 32 channels
+    ((1, 45, 80), (192, 64), (3, 3), 192, "residual"),  # 16 channels, k-split; part 1 a 4-byte aligned view
+    ((1, 45, 80), (256,), (1, 1), 576, "anchor"),  # 16 channels
+    ((2, 37, 53), (5, 7, 3, 1), (1, 5), 126, "anchor"),  # ragged, batch 2
+    ((2, 23, 41), (324,), (5, 1), 126, "residual"),
+]
+
+
+def fma_branch(plan) -> str:
+    """Which of k1_plan's f32 choices a plan is (ops/fused_conv.py::_fma_plan)."""
+    if plan.rows == 16:
+        return "full, head" if plan.cg == 1 else f"full, {plan.resident} resident"
+    if plan.cg == 1:
+        return "grid, head"
+    return f"grid, {8 * plan.cg} channels, {'k-split' if plan.kg > 1 else 'one k-group'}"
+
+
+FMA_BRANCHES = 10  # full: head, 1 or 2 resident; grid: head, 64/32/16 channels with and without a k-split
+
+
+def k1_fma_ragged(gen) -> float:
+    """The FMA kernel on every branch of k1_plan's f32 choice (FMA_CASES):
+    the 4-part GRU concat (128, 128, 126, 2), odd parts copied by element, a
+    part that is a view aligned to 4 bytes only, all four tap shapes, H, W
+    and Cout off the tile, batches of 2, every epilogue; against the twin
+    within 1e-5 + 1e-5*max|ref| (f32 sums in another order), and two
+    launches on the same inputs bit-equal."""
+    worst, branches = 0.0, set()
+    for (b, h, w), parts, (kh, kw), cout, epi in FMA_CASES:
+        cin = sum(parts)
+        xs = [torch.randn(b, h, w, c, generator=gen, device="cuda") for c in parts]
+        if parts == (192, 64):  # a contiguous view one float into its buffer
+            xs[1] = torch.randn(b * h * w * 64 + 1, generator=gen, device="cuda")[1:].view(b, h, w, 64)
+        cw = conv_weights(torch.randn(kh, kw, cin, cout, generator=gen, device="cuda") / (kh * kw * cin) ** 0.5,
+                          torch.rand(cout, generator=gen, device="cuda") + 0.5,
+                          torch.randn(cout, generator=gen, device="cuda") * 0.1)
+        split = max(1, cout // 3)
+        kwargs = {
+            "residual": dict(act="tanh", residual=torch.randn(b, h, w, cout, generator=gen, device="cuda")),
+            "anchor": dict(anchor=[torch.rand(b, h, w, c, generator=gen, device="cuda") for c in (split, cout - split)]),
+            "f32": dict(act="sigmoid", out_dtype=torch.float32),
+            "leaky": dict(act="leaky"),
+        }[epi]
+        aligns = None if not any(x.data_ptr() % 16 for x in xs) else tuple(min(16, x.data_ptr() & -x.data_ptr()) for x in xs)
+        plan = k1_plan(torch.float32, kh, kw, parts, h, w, cout, b, aligns)
+        branches.add(fma_branch(plan))
+        got, again = fused_conv(xs, cw, **kwargs), fused_conv(xs, cw, **kwargs)
+        ref = fused_conv_reference(xs, cw, **kwargs)
+        err = float((got - ref).abs().max())
+        if not err <= 1e-5 + 1e-5 * float(ref.abs().max()):
+            fail(f"K1 FMA kernel on {(b, h, w)} {kh}x{kw} parts {parts} -> {cout} {epi} ({fma_branch(plan)}, {plan}): "
+                 f"err {err}")
+        if not torch.equal(got, again):
+            fail(f"K1 FMA kernel: two launches on {(b, h, w)} {kh}x{kw} parts {parts} -> {cout} differ")
+        worst = max(worst, err)
+    if len(branches) != FMA_BRANCHES:
+        fail(f"the f32 cases reached {len(branches)} of k1_plan's {FMA_BRANCHES} f32 branches: {sorted(branches)}")
+    print(f"K1 FMA kernel, {len(FMA_CASES)} cases on all {FMA_BRANCHES} f32 plan branches ({', '.join(sorted(branches))}): "
+          f"GRU concat, odd parts, a 4-byte aligned view, 1x1/3x3/1x5/5x1, ragged H/W/Cout, batch 2, "
+          f"residual/anchor/f32-out/leaky: max_abs_err={worst:.3e} tol=1e-5 + 1e-5*max|ref|, "
+          f"two launches bit-equal ok", flush=True)
+    return worst
+
+
 def conv3x3_inputs(cin, cout, gen):
     """A 1080p bf16 activation in [0, 1) (a relu output), bf16 weights and
     an f32 bias at the scale of a trained layer."""
@@ -585,7 +692,7 @@ def conv3x3_inputs(cin, cout, gen):
     return x, w, b
 
 
-def phase3_main_path(fast, gen, report, smi):
+def phase3_main_path(fast, highest, gen, report, smi):
     frames = torch.rand(CHUNK, 1, H, W, 3, generator=gen, device="cuda")
     frames = (frames * 255).to(torch.uint8)
     flags = torch.zeros(CHUNK, dtype=torch.bool)
@@ -599,8 +706,7 @@ def phase3_main_path(fast, gen, report, smi):
     (h2, h3), carry = predict_chunk(fast, frames, carry, flags, **kw)
     torch.cuda.synchronize()
     counts = dict(build.COUNTS)
-    expect = {"fused_conv": K1_PER_FRAME * CHUNK, "gru": GRU_PER_FRAME * CHUNK,
-              "equalize_u8": EQ_PER_FRAME * CHUNK, "conv3x3_bf16": 0}
+    expect = launches(K1_PER_FRAME * CHUNK, GRU_PER_FRAME * CHUNK, EQ_PER_FRAME * CHUNK)
     print(f"main path launches over {CHUNK} frames: {counts} (expected {expect})", flush=True)
     if counts != expect:
         fail("launch counts differ from the design")
@@ -626,7 +732,37 @@ def phase3_main_path(fast, gen, report, smi):
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     report["trace"] = trace_path(lambda: predict_chunk(fast, frames, carry, flags, **kw), CHUNK, "main path",
                                {MMA: K1_PER_FRAME, FMA: 0})
-    return counts
+
+    # the same chunk in the default precision (highest: f32 operands, K1 on
+    # the FMA kernel), after a warm-up chunk: its launches, ms/frame and trace
+    carry32 = init_carry(highest, (1, H, W, 3))
+    predict_chunk(highest, frames, carry32, flags, **kw)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    (h2, h3), carry32 = predict_chunk(highest, frames, carry32, flags, **kw)
+    torch.cuda.synchronize()
+    counts32 = dict(build.COUNTS)
+    expect = launches(K1_PER_FRAME * CHUNK, GRU_PER_FRAME * CHUNK, EQ_PER_FRAME * CHUNK, f32=True)
+    print(f"main path, highest, launches over {CHUNK} frames: {counts32} (expected {expect})", flush=True)
+    if counts32 != expect:
+        fail("highest-mode launch counts differ from the design")
+    if h3.dtype != torch.uint8 or int(h3.max()) == 0 or not all(bool(torch.isfinite(v).all()) for v in carry32.values()):
+        fail("the highest-mode chunk's outputs are not what the fast one's are")
+    per_frame = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        predict_chunk(highest, frames, carry32, flags, **kw)
+        torch.cuda.synchronize()
+        per_frame.append((time.perf_counter() - t0) * 1e3 / CHUNK)
+    ms = statistics.median(per_frame)
+    print(f"main path 1080p of_scale={OF_SCALE} iters={ITERS} highest chunk={CHUNK}: "
+          f"{ms:.3f} ms/frame median of {[round(v, 3) for v in per_frame]} on {smi}", flush=True)
+    report["main_path_highest"] = {"ms_per_frame": ms, "per_chunk_ms_per_frame": per_frame, "launches": counts32,
+                                   "frames": CHUNK}
+    report["main_path_highest"]["trace"] = trace_path(
+        lambda: predict_chunk(highest, frames, carry32, flags, **kw), CHUNK, "main path highest",
+        {MMA: 0, FMA: K1_PER_FRAME})
+    return counts, counts32
 
 
 def kernel_id(name: str) -> str:
@@ -748,36 +884,65 @@ def k1_bound_by(rows) -> str:
     return "operations" if ops >= total / 2 else "bytes"
 
 
-def phase5_timings(fast, gen, report):
+def k1_timing_rows(model, layers, gen) -> list[dict]:
+    """Each layer's K1 launch on ``model``'s operands beside its twin, one
+    library convolution (cuDNN ``F.conv2d`` on the same channels_last
+    tensors, in the operands' dtype: the caller sets the TF32 switches) and
+    its bound. Full-resolution calls are timed with CUDA events over
+    back-to-back calls; at the RAFT grids the twin's and the library's calls
+    are shorter than their host launches, so those are timed inside a CUDA
+    graph."""
     rows = []
-    for layer in K1_LAYERS:
-        name = layer[0]
-        cw = layer_weights(fast, layer[1])
+    for layer in layers:
+        name, grid = layer[0], layer[3]
+        cw = layer_weights(model, layer[1])
         xs, kwargs = k1_inputs(layer, cw.w.dtype, gen)
-        # at 45x80 the twin's and the library's calls are shorter than their
-        # host launches: time them inside a CUDA graph
-        timer = graph_ms if layer[3] == RAFT else cuda_ms
+        timer = cuda_ms if grid == FULL else graph_ms
         ms = timer(lambda: fused_conv(xs, cw, **kwargs))
         plain = timer(lambda: fused_conv_reference(xs, cw, **kwargs))
-        # library: one cuDNN conv on the same channels_last bf16 tensors
         x_cl = torch.cat(xs, -1).permute(0, 3, 1, 2)
         w_cl = cw.w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         bias = cw.shift.to(cw.w.dtype)
         pad = ((cw.w.shape[0] - 1) // 2, (cw.w.shape[1] - 1) // 2)
         lib = timer(lambda: F.conv2d(x_cl, w_cl, bias, padding=pad))
         bound, flops, by = k1_bound_ms(layer, cw)
-        rows.append({"layer": name, "shape": [1, *layer[3], *cw.w.shape[2:]],
+        mode = "f32" if cw.w.dtype == torch.float32 else "bf16"
+        rows.append({"layer": name, "mode": mode, "grid": GRID_LABELS[grid], "shape": [1, *grid, *cw.w.shape[2:]],
                      "taps": cw.w.shape[0] * cw.w.shape[1], "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
-                     "per_frame": layer[-1]})
-        print(f"time K1 {name:18s} ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                     "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9, "per_frame": layer[-1]})
+        print(f"time K1 {mode:4s} {name:25s} ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
               f"bound_ms={bound:.4f} ({by}, {bound / ms:.1%} of it reached) x{layer[-1]}/frame", flush=True)
+    return rows
+
+
+def k1_grid_sums(rows) -> dict:
+    """Per grid, the sums over a frame's (or a pair's) launches of each
+    timing, and the launches."""
+    sums = {}
+    for label in GRID_LABELS.values():
+        sub = [r for r in rows if r["grid"] == label]
+        if not sub:
+            continue
+        tot = {k: sum(r[k] * r["per_frame"] for r in sub) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot["launches"] = sum(r["per_frame"] for r in sub)
+        sums[label] = tot
+        print(f"time K1 {rows[0]['mode']} per {'pair' if label == '63x125' else 'frame'} at {label}: "
+              f"ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f} over {tot['launches']} launches", flush=True)
+    return sums
+
+
+def phase5_timings(fast, highest, gen, report):
+    rows = k1_timing_rows(fast, K1_LAYERS, gen)
     report["k1_layers"] = rows
-    for where, grid in (("1080p", FULL), ("45x80", RAFT)):
-        sub = [r for r, layer in zip(rows, K1_LAYERS) if layer[3] == grid]
-        tot = {k: sum(r[k] * r["per_frame"] for r in sub) for k in ("ms", "library_ms", "bound_ms")}
-        print(f"time K1 per frame at {where}: ms={tot['ms']:.4f} library_ms={tot['library_ms']:.4f} "
-              f"bound_ms={tot['bound_ms']:.4f} over {sum(r['per_frame'] for r in sub)} launches", flush=True)
+    report["k1_per_frame"] = k1_grid_sums(rows)
+    # f32 operands (highest mode) on the FMA kernel; the library is cuDNN's
+    # f32 convolution with TF32 off, as highest mode's arithmetic
+    with precision.numerics("highest"):
+        rows32 = k1_timing_rows(highest, K1_F32_LAYERS, gen)
+    report["k1_f32_layers"] = rows32
+    report["k1_f32_per_grid"] = k1_grid_sums(rows32)
+    rows32 = [r for r in rows32 if r["grid"] != "63x125"]  # a highest-mode frame's 121 launches
 
     # the host's side of one launch_k1 call (checks, plan, ctypes): calls
     # made back to back with no synchronisation, on a layer short enough
@@ -870,11 +1035,13 @@ def phase5_timings(fast, gen, report):
     c3_sum = lambda key: sum(r[key] for r in c3)  # noqa: E731
     by = max(c3, key=lambda r: r["bound_ms"])["bound_by"]
 
-    per_frame = lambda key: sum(r[key] * r["per_frame"] for r in rows)  # noqa: E731
+    def per_frame(rs):
+        return dict(**{k: sum(r[k] * r["per_frame"] for r in rs) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                    bound_by=k1_bound_by(rs))
+
     return {
-        "fused_conv": dict(ms=per_frame("ms"), plain_ms=per_frame("plain_ms"),
-                           bound_ms=per_frame("bound_ms"), library_ms=per_frame("library_ms"),
-                           bound_by=k1_bound_by(rows)),
+        "fused_conv": per_frame(rows),
+        "fused_conv_f32": per_frame(rows32),
         "gru": dict(ms=gru_ms * GRU_PER_FRAME, plain_ms=gru_plain * GRU_PER_FRAME,
                     bound_ms=gru_bound * GRU_PER_FRAME, library_ms=gru_lib * GRU_PER_FRAME,
                     bound_by="bytes"),
@@ -922,7 +1089,7 @@ def phase6_conv3x3_path(gen, report) -> int:
     outs = [conv3x3_bf16(x, w, b) for x, w, b in inputs]
     torch.cuda.synchronize()
     counts = dict(build.COUNTS)
-    expect = {"fused_conv": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": len(CONV3X3_CALLS)}
+    expect = launches(c3=len(CONV3X3_CALLS))
     print(f"conv3x3_bf16 path launches: {counts} (expected {expect})", flush=True)
     if counts != expect:
         fail("conv3x3_bf16 path launch counts differ from the design")
@@ -940,10 +1107,10 @@ def phase7_training(sd, report, smi) -> dict:
     flags = torch.zeros(TRAIN_FRAMES, dtype=torch.bool)
     flags[0] = True
     kw = dict(of_scale=OF_SCALE, raft_iters=ITERS)
-    expect = {"fused_conv": K1_PER_TRAIN_FRAME * 2 * TRAIN_FRAMES, "gru": GRU_PER_FRAME * 2 * TRAIN_FRAMES,
-              "equalize_u8": EQ_PER_FRAME * 2 * TRAIN_FRAMES, "conv3x3_bf16": 0}
     out = {}
     for mode in ("fast", "highest"):
+        expect = launches(K1_PER_TRAIN_FRAME * 2 * TRAIN_FRAMES, GRU_PER_FRAME * 2 * TRAIN_FRAMES,
+                          EQ_PER_FRAME * 2 * TRAIN_FRAMES, f32=mode == "highest")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state = init_train_state(Config(precision=mode, **kw), sd, (1, H, W, 3), device="cuda")
@@ -1021,12 +1188,11 @@ def run_cli(label: str, main, argv: list[str]) -> tuple[float, str]:
     return time.perf_counter() - t0, out.getvalue()
 
 
-def expect_counts(label: str, counts: dict, frames: int, train_frames: int = 0) -> None:
+def expect_counts(label: str, counts: dict, frames: int, train_frames: int = 0, *, f32: bool = False) -> None:
     """The launches ``frames`` inference frames and ``train_frames`` training
-    (or training-model eval) frames make."""
-    want = {"fused_conv": K1_PER_FRAME * frames + K1_PER_TRAIN_FRAME * train_frames,
-            "gru": GRU_PER_FRAME * (frames + train_frames), "equalize_u8": EQ_PER_FRAME * (frames + train_frames),
-            "conv3x3_bf16": 0}
+    (or training-model eval) frames make, in highest mode where ``f32``."""
+    want = launches(K1_PER_FRAME * frames + K1_PER_TRAIN_FRAME * train_frames, GRU_PER_FRAME * (frames + train_frames),
+                    EQ_PER_FRAME * (frames + train_frames), f32=f32)
     print(f"{label} launches: {counts} (expected {want})", flush=True)
     if counts != want:
         fail(f"{label}: launch counts differ from the design")
@@ -1240,7 +1406,7 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
         secs, _ = run_cli("predict highest", cli_predict.main,
                           CLI_FLAGS + ["--lowlight_images_path", str(fx4), "--model_pretrain", str(pt),
                                        "--save", str(save), "--chunk", "4"])
-        expect_counts("predict CLI highest", dict(build.COUNTS), 4)
+        expect_counts("predict CLI highest", dict(build.COUNTS), 4, f32=True)
         check_predict_pngs("predict CLI highest", save, recs[:4], ref_h2, ref_h3)
         out["predict_highest"] = {"ms_per_frame": secs * 1e3 / 4, "frames": 4}
         print(f"predict CLI 1080p highest chunk=4: {secs * 1e3 / 4:.3f} ms/frame wall over 4 frames", flush=True)
@@ -1444,8 +1610,7 @@ def phase10_banded(sd, report, smi) -> None:
             torch.cuda.synchronize()
             counts = dict(build.COUNTS)
             g_b = _grads(model)
-            want = {"fused_conv": K1_PER_TRAIN_FRAME, "gru": GRU_PER_FRAME, "equalize_u8": EQ_PER_FRAME,
-                    "conv3x3_bf16": 0}
+            want = launches(K1_PER_TRAIN_FRAME, GRU_PER_FRAME, EQ_PER_FRAME, f32=mode == "highest")
             if counts != want:
                 fail(f"banded training launches {counts} != phase 7's per frame {want}")
             loss_err = abs(float(loss_b) / float(loss_m.detach()) - 1)
@@ -1622,8 +1787,7 @@ def phase11_multidevice(sd, report, smi, main_ms: float) -> None:
             fail(f"scene-parallel inference emitted {[pa0['count'], pa1['count']]} frames")
         same = all(torch.equal(to_u8(a), to_u8(b)) for p in ref for a, b in zip(got[p][:2], ref[p][:2]))
         err_a = max(float((a - b).abs().max()) for p in ref for a, b in zip(got[p], ref[p]))
-        want = {"fused_conv": K1_PER_FRAME * FIXTURE_FRAMES, "gru": GRU_PER_FRAME * FIXTURE_FRAMES,
-                "equalize_u8": EQ_PER_FRAME * FIXTURE_FRAMES, "conv3x3_bf16": 0}
+        want = launches(K1_PER_FRAME * FIXTURE_FRAMES, GRU_PER_FRAME * FIXTURE_FRAMES, EQ_PER_FRAME * FIXTURE_FRAMES)
         print(f"(a) mesh 2x1 predict_scenes_spmd, fast, {len(recs)} frames: PNG bytes (u8 H2, H3) equal to the "
               f"single-process predict_step loop: {same}; f32 max_abs_err {err_a:.3e}; launches per rank "
               f"{[pa0['launches'], pa1['launches']]} (each {want}: phase 3's a frame)", flush=True)
@@ -1659,8 +1823,7 @@ def phase11_multidevice(sd, report, smi, main_ms: float) -> None:
         # arithmetic; cuDNN and cuBLAS take other algorithms at another batch
         # size). That noise is measured per leaf and added to the limit.
         agree = {}
-        want_t = {"fused_conv": K1_PER_TRAIN_FRAME * 2, "gru": GRU_PER_FRAME * 2, "equalize_u8": EQ_PER_FRAME * 2,
-                  "conv3x3_bf16": 0}
+        want_t = launches(K1_PER_TRAIN_FRAME * 2, GRU_PER_FRAME * 2, EQ_PER_FRAME * 2, f32=True)
         for label, r0, r1 in (("2x1", c20, c21), ("1x2", c120, c121)):
             scenes = 2 if label == "2x1" else 1
             if not (r0["replicated"] and r1["replicated"]) or any(
@@ -1767,9 +1930,8 @@ def phase11_multidevice(sd, report, smi, main_ms: float) -> None:
 
 # RAFT's update-core grid at each of the sidecar's operating points: the
 # frame padded to /8, over 8
-FLOW_GRIDS = {"500x1000": (63, 125), "Sintel 436x1024": (55, 128), "KITTI 375x1242": (47, 156)}
+FLOW_GRIDS = {"500x1000": SIDECAR, "Sintel 436x1024": (55, 128), "KITTI 375x1242": (47, 156)}
 FLOW_MODELS = ("lk_pyramid", "pwc_lite", "raft", "raft_small")
-RAFT_K1_LAYERS = [layer for layer in K1_LAYERS if layer[0].startswith("raft.")]
 K1_PER_PAIR = sum(layer[-1] for layer in RAFT_K1_LAYERS)  # 12 x 9 in the update core + 2 in the mask head
 GRU_PER_PAIR = 4 * ITERS
 SINTEL, KITTI = (436, 1024), (375, 1242)
@@ -1946,7 +2108,7 @@ def phase12_flow_sidecar(report, smi, gen) -> dict:
         pair = infer_pair("raft", raft, str(frames[0]), str(frames[1]), gt_flow_path=str(gts[0]), device="cuda")
         torch.cuda.synchronize()
         side = dict(build.COUNTS)
-        want = {"fused_conv": K1_PER_PAIR, "gru": GRU_PER_PAIR, "equalize_u8": 0, "conv3x3_bf16": 0}
+        want = launches(K1_PER_PAIR, GRU_PER_PAIR, f32=True)
         print(f"phase 12 counted path: infer_pair('raft') on one 436x1024 pair launches {side} "
               f"(expected {want}); its EPE against the fixture's flow {pair['epe']:.3f} (random weights)", flush=True)
         if side != want:
@@ -2144,9 +2306,9 @@ def main() -> int:
         errs = phase2_kernels(fast, highest, gen, report)
     # the main path and the timings run with PyTorch's default switches, as
     # a user's fast-mode model does
-    counts = phase3_main_path(fast, gen, report, smi)
+    counts, counts32 = phase3_main_path(fast, highest, gen, report, smi)
     phase4_card_vs_cpu(sd, gen, report)
-    times = phase5_timings(fast, gen, report)
+    times = phase5_timings(fast, highest, gen, report)
     counts["conv3x3_bf16"] = phase6_conv3x3_path(gen, report)
     del fast, highest
     phase7_training(sd, report, smi)
@@ -2161,12 +2323,19 @@ def main() -> int:
         report[f"phase{label}_s"] = time.perf_counter() - t0
         print(f"phase {label} took {report[f'phase{label}_s']:.1f} s", flush=True)
 
-    # launches: the main path's (phases 3 and 6) and the flow sidecar's counted pair (phase 12)
+    # launches: the main path's (phases 3 and 6: fast mode, and for the f32
+    # kernel the same chunk in highest mode) and the flow sidecar's counted
+    # pair (phase 12, highest); beside them each mode's training frames
+    # (phase 7)
+    main = {name: counts32[name] if name == "fused_conv_f32" else counts[name] for name in KERNELS}
+    train = {mode: report["training"][mode]["launches"] for mode in ("fast", "highest")}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": counts[name] + sidecar[name], "max_abs_err": errs[name], **times[name],
-         "launches_by_path": {"main": counts[name], "flow_sidecar_pair": sidecar[name]}}
-        for name in ("fused_conv", "gru", "equalize_u8", "conv3x3_bf16")
+         "launches": main[name] + sidecar[name], "max_abs_err": errs[name], **times[name],
+         "launches_by_path": {"main" if name != "fused_conv_f32" else "main_highest": main[name],
+                              "flow_sidecar_pair": sidecar[name],
+                              "training_fast": train["fast"][name], "training_highest": train["highest"][name]}}
+        for name in KERNELS
     ]
     report["kernels"] = kernels
     if args.out is not None:

@@ -18,7 +18,7 @@ struct ConvArgs {
   const T* in[4];
   int cin_part[4];
   int nin;
-  const T* w;  // (kh, kw, Cin, Cout); the tensor-core kernel: (kh*kw, CinP, CoutP)
+  const T* w;  // the prepared weights: FMA kernel (kh*kw, Cin, CoutP), tensor-core kernel (kh*kw, CinP, CoutP)
   const float* scale;
   const float* shift;
   const T* res;  // (B, H, W, Cout) or null
@@ -66,13 +66,16 @@ __device__ __forceinline__ float epilogue(const ConvArgs<T>& a, float acc, float
 
 // K1's launch record, as ops/fused_conv.py::launch_k1 packs it: 8-byte
 // slots, so that the host hands over one pointer instead of forty arguments.
+// Each kernel's plan follows the common slots.
 // Addresses and integers are 64-bit integers, lo and hi doubles.
 enum Slot {
   kIn0 = 0, kCin0 = 4, kNin = 8, kW, kScale, kShift, kRes, kAnc0, kAnc1, kAc0, kAc1, kNanc, kOut,
   kB, kH, kWidth, kCout, kKh, kKw, kPh, kPw, kAct, kLo, kHi,
-  kCommonSlots,  // the tensor-core kernel's plan follows
+  kCommonSlots,  // the tensor-core kernel's plan follows (the FMA kernel's: FmaSlot)
   kOutF32 = kCommonSlots, kTile, kGridX, kKc, kVec0, kCinP = kVec0 + 4, kCoutP, kMmaSlots
 };
+// the FMA kernel's plan, after the common slots
+enum FmaSlot { kFTr = kCommonSlots, kFCg, kFKg, kFKc, kFVec0, kFCoutP = kFVec0 + 4, kFResident, kFmaSlots };
 
 template <typename T>
 ConvArgs<T> make_args(const long long* s) {

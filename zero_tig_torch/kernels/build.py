@@ -45,8 +45,10 @@ SIGNATURES = {
 }
 
 # launches of each kernel wrapper since the last reset_counts(); a wrapper
-# adds one where it calls into the library, and nowhere else
-COUNTS = {"fused_conv": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0}
+# adds one where it calls into the library, and nowhere else. K1's wrapper
+# counts its two kernels apart: "fused_conv" the tensor-core kernel (bf16
+# operands), "fused_conv_f32" the FMA kernel (f32 operands)
+COUNTS = {"fused_conv": 0, "fused_conv_f32": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None

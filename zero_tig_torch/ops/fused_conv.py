@@ -6,9 +6,10 @@ Replaces the four Pallas call sites of ``zero_tig_tpu/ops/pack_conv.py``
 core (``zero_tig_tpu/models/raft/update_kernel.py::update_core_kernel``).
 K1 is two kernels that compute the same function: ``csrc/fused_conv_mma.cu``
 (bf16 tensor cores, implicit GEMM) takes every launch with bf16 operands,
-``csrc/fused_conv.cu`` (f32 FMAs) every launch with f32 operands, which must
-stay exact f32. ``k1_plan`` decides which, and the tile shape; nothing falls
-back from one to the other. The source notes say what bounds each on the
+``csrc/fused_conv.cu`` (f32 FMAs on the CUDA cores, implicit GEMM) every
+launch with f32 operands, which must stay exact f32. ``k1_plan`` decides
+which, and each kernel's tiles and grid; nothing falls back from one to the
+other. The source notes say what bounds each on the
 H100 and what its design does about that.
 
     out = act(conv(cat(inputs)) * scale + shift) [+ residual]
@@ -17,7 +18,9 @@ H100 and what its design does about that.
 Operands are bf16 (fast mode) or f32 (highest mode); the sum and the
 epilogue are f32; the output has the operand type unless ``out_dtype``
 asks for f32. ``fused_conv`` launches the kernel for CUDA tensors and runs
-``fused_conv_reference``, its plain PyTorch twin, for CPU tensors.
+``fused_conv_reference``, its plain PyTorch twin, for CPU tensors, and
+counts each launch under its kernel: ``fused_conv`` (bf16) or
+``fused_conv_f32``.
 """
 
 from __future__ import annotations
@@ -43,10 +46,15 @@ K1_STAGES = 3  # chunk buffers of the tensor-core kernel's cp.async ring
 K1_TILES = ((8, 64), (8, 8), (4, 64), (4, 32), (4, 8))
 K1_TILE_BLOCKS = (2, 5, 2, 2, 8)
 K1_STAGE_BYTES = 36 * 1024  # a chunk of a streamed conv: 3 stages x 2 blocks fill an SM's shared memory
+# the FMA kernel (csrc/fused_conv.cu): a thread's 8 pixels x 8 output
+# channels, tiles of F32_COLS columns, at most F32_THREADS threads a block
+F32_COLS = 16
+F32_THREADS = 256
+F32_STAGES = 2  # chunk buffers of its cp.async double buffer (csrc/fused_conv.cu::kStages)
 # a launch's record as csrc/fused_conv.cuh::Slot lays it out, in 8-byte slots:
-# 28 addresses and integers, lo and hi, and for the tensor-core kernel the
-# 10 integers of its plan
-_FMA_RECORD = struct.Struct("28q2d")
+# 28 addresses and integers, lo and hi, and the integers of the kernel's
+# plan: 10 for the tensor-core kernel (Slot), 10 for the FMA kernel (FmaSlot)
+_FMA_RECORD = struct.Struct("28q2d10q")
 _MMA_RECORD = struct.Struct("28q2d10q")
 
 
@@ -55,8 +63,9 @@ class ConvWeights(NamedTuple):
 
     w: (kh, kw, Cin, Cout) in the operand dtype, contiguous;
     scale, shift: (Cout,) f32 -- the bias, or a folded eval BatchNorm;
-    wp: for bf16 operands, ``pack_weights(w)``, what the tensor-core kernel
-    reads (``launch_k1`` packs at the launch when it is None).
+    wp: what the kernel reads: for bf16 operands ``pack_weights(w)``, for
+    f32 operands ``pack_weights_f32(w)`` (``launch_k1`` packs at the launch
+    when it is None).
     """
 
     w: torch.Tensor
@@ -80,27 +89,42 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return wp.contiguous()
 
 
+def pack_weights_f32(w: torch.Tensor) -> torch.Tensor:
+    """(kh, kw, Cin, Cout) -> (kh*kw, Cin, CoutP), contiguous: Cout padded to
+    a multiple of 4 with zeros, so that the FMA kernel stages every weight
+    row as whole 16-byte words. A view of ``w`` where nothing pads."""
+    kh, kw, cin, cout = w.shape
+    wp = w.reshape(kh * kw, cin, cout)
+    if cout % 4:
+        wp = F.pad(wp, (0, -cout % 4))
+    return wp.contiguous()
+
+
 def unpack_weights(wp: torch.Tensor, kh: int, kw: int, cin: int, cout: int) -> torch.Tensor:
-    """The inverse of ``pack_weights``."""
+    """The inverse of ``pack_weights`` and of ``pack_weights_f32``."""
     return wp[:, :cin, :cout].reshape(kh, kw, cin, cout).contiguous()
 
 
 def conv_weights(w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> ConvWeights:
     """K1's operands from (kh, kw, Cin, Cout) weights, packed once here for
-    the tensor-core kernel when they are bf16."""
+    the kernel their dtype takes."""
     w = w.contiguous()
-    wp = pack_weights(w) if w.dtype == torch.bfloat16 else None
+    wp = pack_weights(w) if w.dtype == torch.bfloat16 else pack_weights_f32(w)
     return ConvWeights(w, scale.contiguous(), shift.contiguous(), wp)
 
 
 class K1Plan(NamedTuple):
     """Which kernel a K1 launch takes and how it is tiled.
 
-    kernel: "mma" (csrc/fused_conv_mma.cu) or "fma" (csrc/fused_conv.cu);
-    the rest describes an "mma" launch: the index into ``K1_TILES``, the
-    input channels per staged chunk, the elements per copy of each input
-    part, the padded widths, the grid (blocks that walk over the spatial
-    tiles, batch x channel tiles) and the shared memory of a block.
+    kernel: "mma" (csrc/fused_conv_mma.cu) or "fma" (csrc/fused_conv.cu).
+    Both: the input channels per staged chunk, the elements per copy of each
+    input part, the padded widths of the weights the kernel reads, the grid
+    and the shared memory of a block. "mma": the index into ``K1_TILES``;
+    its grid is (blocks that walk over the spatial tiles, batch x channel
+    tiles). "fma": the tile rows (of ``F32_COLS`` columns), the channel
+    groups (8 output channels each), the k-groups that split each chunk's
+    channels and the blocks of ``F32_THREADS`` threads an SM must hold (1, or 2, which caps the kernel at 128 registers a thread);
+    its grid is (spatial tiles, batch x channel tiles).
     """
 
     kernel: str
@@ -111,10 +135,19 @@ class K1Plan(NamedTuple):
     cout_p: int = 0
     grid: tuple[int, int] = (0, 0)
     smem: int = 0
+    rows: int = 0
+    cg: int = 0
+    kg: int = 0
+    resident: int = 0
 
     @property
     def blocks(self) -> int:
         return math.prod(self.grid)
+
+    @property
+    def threads(self) -> int:
+        """Threads of one block of the FMA kernel."""
+        return 2 * self.rows * self.cg * self.kg
 
 
 def _mma_smem(tile: int, kh: int, kw: int, kc: int, cin_p: int) -> int:
@@ -129,6 +162,101 @@ def _mma_smem(tile: int, kh: int, kw: int, kc: int, cin_p: int) -> int:
         a_bytes = max(a_bytes, out_bytes)
     npix = (rows + kh - 1) * (16 + kw - 1)
     return max(min(K1_STAGES, nchunks) * (a_bytes + kh * kw * kc * b_stride), out_bytes) + 2 * bn * 4 + npix * 4
+
+
+def _fma_smem(rows: int, cg: int, kg: int, kc: int, kh: int, kw: int, cin: int) -> int:
+    """Shared memory of one block of the FMA kernel, as
+    csrc/fused_conv.cu::geometry computes it: the staged chunks (input halo
+    tile, pixel stride an odd number of 16-byte words, and the weight slab),
+    or the k-groups' partial sums or the output tile (rows of 8 * cg + 4
+    floats) where one of those is larger, then an int per halo pixel."""
+    npix = (rows + kh - 1) * (F32_COLS + kw - 1)
+    ps = kc + 4 if (kc // 4) % 2 == 0 else kc
+    stage = npix * ps + kh * kw * kc * 8 * cg
+    partials = (kg - 1) * 2 * rows * cg * 64
+    tile = rows * F32_COLS * (8 * cg + 4)
+    return 4 * (max(min(F32_STAGES, math.ceil(cin / kc)) * stage, partials, tile) + npix)
+
+
+def _copy_widths(parts: tuple[int, ...], aligns: tuple[int, ...] | None, widest: int, esz: int) -> tuple[int, ...]:
+    """Elements per copy of each input part: the widest unit (``widest``
+    elements of ``esz`` bytes, halved down to one) that divides the part's
+    channels and its offset in the concat and that its pointer is aligned
+    to."""
+    vec, off = [], 0
+    for j, c in enumerate(parts):
+        v = math.gcd(widest, c, off) if off else math.gcd(widest, c)
+        if aligns is not None:
+            v = min(v, max(1, math.gcd(16, aligns[j]) // esz))
+        vec.append(v)
+        off += c
+    return tuple(vec)
+
+
+def fma_plan(kh: int, kw: int, parts: tuple[int, ...], h: int, w: int, cout: int, batch: int,
+             aligns: tuple[int, ...] | None, *, rows: int, cg: int, kg: int, kc: int,
+             resident: int = 1) -> K1Plan:
+    """The FMA kernel's plan with the given tiling (what ``k1_plan`` picks,
+    or one that ``compare_k1.py --sweep`` times against it); raises where
+    the kernel cannot take it."""
+    cin = sum(parts)
+    threads = 2 * rows * cg * kg
+    smem = _fma_smem(rows, cg, kg, kc, kh, kw, cin)
+    if (kw not in (1, 3, 5) or not 1 <= cg <= 8 or kc % 4 or not 1 <= kg <= kc // 4 or threads > F32_THREADS
+            or resident not in (1, 2) or (resident == 2 and kw == 5)):
+        raise ValueError(f"K1's f32 kernel cannot take a {kh}x{kw} conv with rows={rows} cg={cg} kg={kg} "
+                         f"kc={kc} resident={resident}")
+    if smem * resident > SMEM_LIMIT:
+        raise ValueError(f"K1: a {kh}x{kw} f32 conv needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
+    return K1Plan("fma", kc=kc, vec=_copy_widths(parts, aligns, 4, 4), cin_p=cin, cout_p=cout + -cout % 4,
+                  grid=(math.ceil(h / rows) * math.ceil(w / F32_COLS), batch * math.ceil(cout / (8 * cg))),
+                  smem=smem, rows=rows, cg=cg, kg=kg, resident=resident)
+
+
+def _fma_plan(kh: int, kw: int, parts: tuple[int, ...], h: int, w: int, cout: int, batch: int,
+              aligns: tuple[int, ...] | None) -> K1Plan:
+    """The FMA kernel's tiling, as measured on the H100 (compare_k1.py
+    --sweep). Where 8-row x 64-channel tiles number 8 or more for every SM
+    (the 1080p layers): 16-row tiles of all of Cout, chunks of all of Cin
+    up to 16, else of 8; two resident blocks where the tile is 64 channels
+    wide, one otherwise; a head of 8 channels or fewer takes them in one
+    channel group over 2 k-groups. Otherwise (the RAFT grids, and 1x5 taps,
+    which need every register): 8-row tiles and one resident block; a head
+    of 8 channels or fewer over 8 k-groups; else tiles of 64, 32 or 16
+    channels, whichever leaves the fewest SMs idle in the last wave of
+    blocks (the wider on a tie), and k-groups, a power of two, until the
+    blocks hold about 32K threads (256 for each SM); chunks of 16 channels a
+    k-group (at most 64), halved until every block of the launch can be
+    resident at once, or at least one."""
+    if kw not in (1, 3, 5):
+        raise ValueError(f"K1's f32 kernel takes 1, 3 or 5 taps along a row, not {kh}x{kw}")
+    cin = sum(parts)
+    cin_r = cin + -cin % 4
+    cout_p = cout + -cout % 4
+    plan = functools.partial(fma_plan, kh, kw, parts, h, w, cout, batch, aligns)
+    tiles = math.ceil(h / 8) * math.ceil(w / F32_COLS) * batch
+    if tiles * math.ceil(cout_p / 64) >= 8 * SM_COUNT and kw != 5:
+        cg = min(8, math.ceil(cout_p / 8))
+        if cg == 1:
+            return plan(rows=16, cg=1, kg=min(2, cin_r // 4), kc=min(8, cin_r), resident=2)
+        return plan(rows=16, cg=cg, kg=1, kc=cin_r if cin <= 16 else 8, resident=2 if cg == 8 else 1)
+    if cout_p <= 8:
+        cg, kg = 1, 8
+    else:
+        def waves_filled(cg: int) -> float:  # the share of the last wave of blocks that has a block
+            blocks = tiles * math.ceil(cout / (8 * cg))
+            return blocks / (SM_COUNT * math.ceil(blocks / SM_COUNT))
+
+        cg = max((8, 4, 2), key=lambda c: (round(waves_filled(c), 2), c))
+        blocks = tiles * math.ceil(cout / (8 * cg))
+        kg = 2 ** max(0, round(math.log2(32 * 1024 / (blocks * 16 * cg))))
+        kg = min(kg, F32_THREADS // (16 * cg))
+    # as deep as lets every block of the launch be resident at once
+    per_sm = math.ceil(tiles * math.ceil(cout / (8 * cg)) / SM_COUNT)
+    kc = min(64, 16 * kg)
+    while kc > 4 and _fma_smem(8, cg, kg, kc, kh, kw, cin) * (per_sm if kc > 4 * kg else 1) > SMEM_LIMIT:
+        kc //= 2
+    return plan(rows=8, cg=cg, kg=min(kg, kc // 4), kc=kc)
 
 
 @functools.lru_cache(maxsize=512)
@@ -148,8 +276,8 @@ def k1_plan(
     Cout. ``aligns``: the byte alignment of each part's pointer (16 or more
     when None, as every whole tensor has).
 
-    f32 operands take the FMA kernel. bf16 operands take the tensor-core
-    kernel: 8-row tiles when those alone fill the card twice over, else
+    f32 operands take the FMA kernel, tiled by ``_fma_plan``. bf16 operands
+    take the tensor-core kernel: 8-row tiles when those alone fill the card twice over, else
     4-row tiles (the 45x80 RAFT grid has only 60 of them), and there 32
     output channels per block instead of 64 when 64 would leave SMs without
     a block; 8 output channels for the 2-6 channel heads. A part is copied
@@ -161,7 +289,7 @@ def k1_plan(
     channels through a ring of 3 stages of at most 36 KB each, so that two
     blocks share an SM, one block a tile."""
     if dtype == torch.float32:
-        return K1Plan("fma")
+        return _fma_plan(kh, kw, parts, h, w, cout, batch, aligns)
     if dtype != torch.bfloat16:
         raise ValueError(f"K1 operands must be f32 or bf16, not {dtype}")
     cin = sum(parts)
@@ -176,13 +304,7 @@ def k1_plan(
     else:
         tile = 2 if tiles4 * n64 >= SM_COUNT else 3
     rows, bn = K1_TILES[tile]
-    vec, off = [], 0
-    for j, c in enumerate(parts):
-        v = math.gcd(8, c, off) if off else math.gcd(8, c)
-        if aligns is not None:
-            v = min(v, max(1, math.gcd(16, aligns[j]) // 2))
-        vec.append(v)
-        off += c
+    vec = _copy_widths(parts, aligns, 8, 2)
     tiles = tiles8 if rows == 8 else tiles4
     grid_y = batch * math.ceil(cout_p / bn)
     if cin_p <= 64:
@@ -196,7 +318,7 @@ def k1_plan(
         grid_x = tiles
     if smem > SMEM_LIMIT:
         raise ValueError(f"K1: a {kh}x{kw} conv needs {smem} bytes of shared memory, over {SMEM_LIMIT}")
-    return K1Plan("mma", tile, kc, tuple(vec), cin_p, cout_p, (grid_x, grid_y), smem)
+    return K1Plan("mma", tile, kc, vec, cin_p, cout_p, (grid_x, grid_y), smem)
 
 
 def prepare_conv(
@@ -293,7 +415,7 @@ def fused_conv(
             lo=lo, hi=hi, out_dtype=out_dtype,
         )
     out = launch_k1(inputs, cw, act=act, residual=residual, anchor=anchor, lo=lo, hi=hi, out_dtype=out_dtype)
-    build.COUNTS["fused_conv"] += 1
+    build.COUNTS["fused_conv_f32" if inputs[0].dtype == torch.float32 else "fused_conv"] += 1
     return out
 
 
@@ -307,10 +429,12 @@ def launch_k1(
     lo: float = 1e-4,
     hi: float = 1.0,
     out_dtype: torch.dtype | None = None,
+    plan: K1Plan | None = None,
 ) -> torch.Tensor:
     """Check the operands and launch K1 once on CUDA tensors, on the kernel
-    and tile ``k1_plan`` names (raises on what it cannot take; no launch
-    gives way to the other kernel or to the twin). The wrappers
+    and tile ``k1_plan`` names, or on ``plan`` where one is given (an
+    ``fma_plan`` that ``compare_k1.py --sweep`` times); raises on what it
+    cannot take, and no launch gives way to the other kernel or to the twin. The wrappers
     ``fused_conv`` and ``conv3x3_bf16`` call it and count the launch under
     their own names. A frame makes over a hundred of these calls, so the
     checks read each tensor's attributes once."""
@@ -354,12 +478,11 @@ def launch_k1(
 
     # every whole tensor starts on 16 bytes or more; only a view may not
     aligns = None if not any(p % 16 for p in ptrs) else tuple(min(16, p & -p) for p in ptrs)
-    plan = k1_plan(dtype, kh, kw, parts, h, w, cout, b, aligns)
-    wts = cw.w
-    if plan.kernel == "mma":
-        wts = cw.wp if cw.wp is not None else pack_weights(cw.w)
-        if wts.shape != (kh * kw, plan.cin_p, plan.cout_p) or wts.device != dev or not wts.is_contiguous():
-            raise ValueError(f"K1 packed weights {tuple(wts.shape)} do not fit {tuple(cw.w.shape)}")
+    plan = plan or k1_plan(dtype, kh, kw, parts, h, w, cout, b, aligns)
+    wts = cw.wp if cw.wp is not None else (pack_weights if plan.kernel == "mma" else pack_weights_f32)(cw.w)
+    if (wts.shape != (kh * kw, plan.cin_p, plan.cout_p) or wts.dtype != dtype or wts.device != dev
+            or not wts.is_contiguous() or wts.data_ptr() % 16):
+        raise ValueError(f"K1 packed weights {tuple(wts.shape)} do not fit {tuple(cw.w.shape)}")
     lib = build.library()
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=dev)
     zeros = (0,) * 4
@@ -379,6 +502,11 @@ def launch_k1(
             stream,
         )
     else:
-        code = lib.zt_fused_conv(_FMA_RECORD.pack(*record), stream)
+        code = lib.zt_fused_conv(
+            _FMA_RECORD.pack(
+                *record, plan.rows, plan.cg, plan.kg, plan.kc, *plan.vec, *(1,) * (4 - nin), plan.cout_p, plan.resident,
+            ),
+            stream,
+        )
     build.check(code, f"fused_conv ({plan.kernel})")
     return out
