@@ -1,0 +1,8 @@
+"""The share of the traced steps' host-clock span in which no operation ran
+on the device, in %."""
+
+
+def read(summary: dict, config: dict) -> float | None:
+    if summary.get("kind") != "train":
+        return None
+    return 100.0 * (1.0 - summary["busy_s"] / summary["window_s"])
