@@ -186,6 +186,7 @@ from zero_tig_torch.flowtools import (
     write_kitti_submission,
     write_sintel_submission,
 )
+from zero_tig_torch.core import spans
 from zero_tig_torch.kernels import build
 from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
 from zero_tig_torch.models import build_model, init_random_state_dict, init_state_dict
@@ -702,10 +703,10 @@ def phase3_main_path(fast, highest, gen, report, smi):
 
     (h2, h3), carry = predict_chunk(fast, frames, carry, flags, **kw)  # warm-up
     torch.cuda.synchronize()
-    build.reset_counts()
+    spans.reset_counts()
     (h2, h3), carry = predict_chunk(fast, frames, carry, flags, **kw)
     torch.cuda.synchronize()
-    counts = dict(build.COUNTS)
+    counts = dict(spans.COUNTS)
     expect = launches(K1_PER_FRAME * CHUNK, GRU_PER_FRAME * CHUNK, EQ_PER_FRAME * CHUNK)
     print(f"main path launches over {CHUNK} frames: {counts} (expected {expect})", flush=True)
     if counts != expect:
@@ -738,10 +739,10 @@ def phase3_main_path(fast, highest, gen, report, smi):
     carry32 = init_carry(highest, (1, H, W, 3))
     predict_chunk(highest, frames, carry32, flags, **kw)
     torch.cuda.synchronize()
-    build.reset_counts()
+    spans.reset_counts()
     (h2, h3), carry32 = predict_chunk(highest, frames, carry32, flags, **kw)
     torch.cuda.synchronize()
-    counts32 = dict(build.COUNTS)
+    counts32 = dict(spans.COUNTS)
     expect = launches(K1_PER_FRAME * CHUNK, GRU_PER_FRAME * CHUNK, EQ_PER_FRAME * CHUNK, f32=True)
     print(f"main path, highest, launches over {CHUNK} frames: {counts32} (expected {expect})", flush=True)
     if counts32 != expect:
@@ -1085,10 +1086,10 @@ def phase6_conv3x3_path(gen, report) -> int:
     is its calls at 1080p, counted like every other."""
     inputs = [conv3x3_inputs(cin, cout, gen) for cin, cout in CONV3X3_CALLS]
     torch.cuda.synchronize()
-    build.reset_counts()
+    spans.reset_counts()
     outs = [conv3x3_bf16(x, w, b) for x, w, b in inputs]
     torch.cuda.synchronize()
-    counts = dict(build.COUNTS)
+    counts = dict(spans.COUNTS)
     expect = launches(c3=len(CONV3X3_CALLS))
     print(f"conv3x3_bf16 path launches: {counts} (expected {expect})", flush=True)
     if counts != expect:
@@ -1120,7 +1121,7 @@ def phase7_training(sd, report, smi) -> dict:
         bn = state.model.enhance.conv[1]
         stats0 = bn.running_mean.clone()
         torch.cuda.synchronize()
-        build.reset_counts()
+        spans.reset_counts()
         ms, losses = {}, []
         for bn_train in (True, False):
             t0 = time.perf_counter()
@@ -1130,7 +1131,7 @@ def phase7_training(sd, report, smi) -> dict:
             losses.append(loss)
             if bn_train:
                 stats1 = bn.running_mean.clone()
-        counts = dict(build.COUNTS)
+        counts = dict(spans.COUNTS)
         losses = torch.cat(losses).cpu()
         peak = torch.cuda.max_memory_allocated() / 1e9
         moved = [bool((p.detach() != b).any()) for p, b in zip(state.optimizer.params, before)]
@@ -1338,10 +1339,10 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
             save = tmp / f"pred_fast_{run}"
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            build.reset_counts()
+            spans.reset_counts()
             secs, _ = run_cli(f"predict fast run {run}", cli_predict.main,
                               common + ["--save", str(save), "--precision", "fast", "--chunk", "4"])
-            counts = dict(build.COUNTS)
+            counts = dict(spans.COUNTS)
             peak = torch.cuda.max_memory_allocated() / 1e9
             expect_counts(f"predict CLI fast run {run}", counts, CLI_FRAMES)
             check_predict_pngs(f"predict CLI fast run {run}", save, recs, ref_h2, ref_h3)
@@ -1353,11 +1354,11 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
         long_h2, long_h3 = reference_u8(
             fast, torch.from_numpy(np.stack([r.image for r in long_recs])[:, None]).cuda(), long_flags, 4)
         save = tmp / "pred_fast_long"
-        build.reset_counts()
+        spans.reset_counts()
         secs, _ = run_cli("predict fast long", cli_predict.main,
                           CLI_FLAGS + ["--lowlight_images_path", str(fx_long), "--model_pretrain", str(pt),
                                        "--save", str(save), "--precision", "fast", "--chunk", "4"])
-        expect_counts("predict CLI fast long", dict(build.COUNTS), len(long_recs))
+        expect_counts("predict CLI fast long", dict(spans.COUNTS), len(long_recs))
         steady_ms = steady_ms_per_frame(save, "L0", len(long_recs), 4)
         check_predict_pngs("predict CLI fast long", save, long_recs, long_h2, long_h3)
         del long_recs, long_h2, long_h3
@@ -1387,12 +1388,12 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
         # the Enhancer at half resolution (--enh_scale 2), 4 frames
         ref_h2, ref_h3 = reference_u8(fast, frames[:4], flags[:4], 4, enh_scale=2)
         save = tmp / "pred_enh2"
-        build.reset_counts()
+        spans.reset_counts()
         secs, _ = run_cli("predict enh_scale 2", cli_predict.main,
                           CLI_FLAGS + ["--lowlight_images_path", str(fx4), "--model_pretrain", str(pt),
                                        "--save", str(save), "--precision", "fast", "--chunk", "4",
                                        "--enh_scale", "2"])
-        expect_counts("predict CLI fast --enh_scale 2", dict(build.COUNTS), 4)
+        expect_counts("predict CLI fast --enh_scale 2", dict(spans.COUNTS), 4)
         check_predict_pngs("predict CLI fast --enh_scale 2", save, recs[:4], ref_h2, ref_h3)
         out["predict_enh_scale2"] = {"ms_per_frame": secs * 1e3 / 4, "frames": 4}
         del fast
@@ -1402,11 +1403,11 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
         ref_h2, ref_h3 = reference_u8(highest, frames[:4], flags[:4], 4)
         del highest
         save = tmp / "pred_highest"
-        build.reset_counts()
+        spans.reset_counts()
         secs, _ = run_cli("predict highest", cli_predict.main,
                           CLI_FLAGS + ["--lowlight_images_path", str(fx4), "--model_pretrain", str(pt),
                                        "--save", str(save), "--chunk", "4"])
-        expect_counts("predict CLI highest", dict(build.COUNTS), 4, f32=True)
+        expect_counts("predict CLI highest", dict(spans.COUNTS), 4, f32=True)
         check_predict_pngs("predict CLI highest", save, recs[:4], ref_h2, ref_h3)
         out["predict_highest"] = {"ms_per_frame": secs * 1e3 / 4, "frames": 4}
         print(f"predict CLI 1080p highest chunk=4: {secs * 1e3 / 4:.3f} ms/frame wall over 4 frames", flush=True)
@@ -1415,10 +1416,10 @@ def phase8_cli(sd, report, smi, main_ms: float) -> None:
         exp = tmp / "exp"
         train_flags = CLI_FLAGS + ["--lowlight_images_path", fx, "--precision", "fast", "--chunk", "2",
                                    "--epochs", "2"]
-        build.reset_counts()
+        spans.reset_counts()
         secs, _ = run_cli("train", cli_train.main, train_flags + ["--save", str(exp)])
         # 2 epochs of 8 training frames and 8 eval frames, all on the training model
-        expect_counts("train CLI", dict(build.COUNTS), 0, 4 * CLI_FRAMES)
+        expect_counts("train CLI", dict(spans.COUNTS), 0, 4 * CLI_FRAMES)
         (run_dir,) = glob.glob(str(exp / "Train-*"))
         run_dir = Path(run_dir)
         log = (run_dir / "log.txt").read_text()
@@ -1525,9 +1526,9 @@ def phase9_serve(sd, report, smi, main_ms: float) -> None:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        build.reset_counts()
+        spans.reset_counts()
         secs, _ = run_cli("serve", cli_serve.main, argv)
-        counts = dict(build.COUNTS)
+        counts = dict(spans.COUNTS)
         peak = torch.cuda.max_memory_allocated() / 1e9
         stopper.join(timeout=5)
         expect_counts("serve daemon", counts, len(recs))
@@ -1605,10 +1606,10 @@ def phase10_banded(sd, report, smi) -> None:
             bn.running_mean.copy_(stats[0])
             bn.running_var.copy_(stats[1])
             torch.cuda.synchronize()
-            build.reset_counts()
+            spans.reset_counts()
             loss_b, _ = spatial_loss_and_grads(state, frame, new, bands=4, halo=BAND_HALO, bn_train=bn_train, **kw)
             torch.cuda.synchronize()
-            counts = dict(build.COUNTS)
+            counts = dict(spans.COUNTS)
             g_b = _grads(model)
             want = launches(K1_PER_TRAIN_FRAME, GRU_PER_FRAME, EQ_PER_FRAME, f32=mode == "highest")
             if counts != want:
@@ -2104,10 +2105,10 @@ def phase12_flow_sidecar(report, smi, gen) -> dict:
         raft = get_flow_model("raft").init_fn(SEED, device="cuda")
         infer_pair("raft", raft, str(frames[0]), str(frames[1]), device="cuda")  # warm-up
         torch.cuda.synchronize()
-        build.reset_counts()
+        spans.reset_counts()
         pair = infer_pair("raft", raft, str(frames[0]), str(frames[1]), gt_flow_path=str(gts[0]), device="cuda")
         torch.cuda.synchronize()
-        side = dict(build.COUNTS)
+        side = dict(spans.COUNTS)
         want = launches(K1_PER_PAIR, GRU_PER_PAIR, f32=True)
         print(f"phase 12 counted path: infer_pair('raft') on one 436x1024 pair launches {side} "
               f"(expected {want}); its EPE against the fixture's flow {pair['epe']:.3f} (random weights)", flush=True)
@@ -2293,14 +2294,15 @@ def main() -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     build.library()
-    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"kernels built and loaded in {build_s:.1f} s", flush=True)
     frameio_line = frameio_build_line()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sd = init_random_state_dict(SEED)
     fast = build_model(sd, device="cuda", precision="fast")
     highest = build_model(sd, device="cuda", precision="highest")
-    report: dict = {"device": smi, "build_s": build.BUILD_SECONDS, "frameio": frameio_line}
+    report: dict = {"device": smi, "build_s": build_s, "frameio": frameio_line}
 
     with precision.numerics("highest"):  # f32 twins hold f32 sums, not TF32
         errs = phase2_kernels(fast, highest, gen, report)

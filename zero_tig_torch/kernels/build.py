@@ -20,7 +20,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -44,19 +43,7 @@ SIGNATURES = {
     "zt_equalize": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
-# launches of each kernel wrapper since the last reset_counts(); a wrapper
-# adds one where it calls into the library, and nowhere else. K1's wrapper
-# counts its two kernels apart: "fused_conv" the tensor-core kernel (bf16
-# operands), "fused_conv_f32" the FMA kernel (f32 operands)
-COUNTS = {"fused_conv": 0, "fused_conv_f32": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0}
-
 _LIB: ctypes.CDLL | None = None
-BUILD_SECONDS: float | None = None
-
-
-def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
 
 
 def _nvcc() -> str:
@@ -116,15 +103,13 @@ def build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    global _LIB, BUILD_SECONDS
+    global _LIB
     if _LIB is None:
-        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        BUILD_SECONDS = time.perf_counter() - t0
         _LIB = lib
     return _LIB
 

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..core import spans
 from ..core.precision import check_mode, compute_dtype, numerics
 from ..ops.equalize import equalize01
 from ..ops.filters import blur, pair_downsampler, texture_difference
@@ -81,12 +82,13 @@ def update_cache(
 ) -> torch.Tensor:
     """Flow from the previous output to the current frame at 1/of_scale,
     then one backward warp of [last_H3 | last_s3]: (B, H, W, 6)."""
-    h, w = last_H3.shape[1], last_H3.shape[2]
-    size = (h // of_scale, w // of_scale)
-    last_tmp = resize_bilinear(last_H3, size) * 255.0  # NOT equalised
-    l2_tmp = equalize01(resize_bilinear(L2, size))  # equalised
-    _, flow_up = raft(last_tmp, l2_tmp, iters=raft_iters)
-    return warp_tensor(flow_up, torch.cat([last_H3, last_s3], dim=-1))
+    with spans.span("zt.flow"):
+        h, w = last_H3.shape[1], last_H3.shape[2]
+        size = (h // of_scale, w // of_scale)
+        last_tmp = resize_bilinear(last_H3, size) * 255.0  # NOT equalised
+        l2_tmp = equalize01(resize_bilinear(L2, size))  # equalised
+        _, flow_up = raft(last_tmp, l2_tmp, iters=raft_iters)
+        return warp_tensor(flow_up, torch.cat([last_H3, last_s3], dim=-1))
 
 
 def forward_inference(
@@ -112,49 +114,52 @@ def forward_inference(
     alone, and the outputs are theirs (a band of a row-sharded step,
     ``parallel/spmd_predict.py``); Denoise_1, the flow and the warp still
     take the whole frame. At 1/enh_scale the Enhancer takes the whole frame."""
-    if not model.prepared:
-        model.prepare()
-    with numerics(model.precision):
-        cdt = model.dtype
-        inp = (frame + EPS).to(cdt).contiguous()
-        L2 = model.denoise_1([inp], anchor=[inp])
-        w6 = update_cache(
-            model.raft, carry["last_H3"].to(cdt), carry["last_s3"].to(cdt), L2,
-            of_scale=of_scale, raft_iters=raft_iters,
-        )
-        new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
-        w6 = torch.where(new, torch.zeros_like(w6), w6)
+    with spans.span("zt.infer.frame"):
+        if not model.prepared:
+            model.prepare()
+        with numerics(model.precision):
+            cdt = model.dtype
+            with spans.span("zt.infer.denoise_1"):
+                inp = (frame + EPS).to(cdt).contiguous()
+                L2 = model.denoise_1([inp], anchor=[inp])
+            w6 = update_cache(
+                model.raft, carry["last_H3"].to(cdt), carry["last_s3"].to(cdt), L2,
+                of_scale=of_scale, raft_iters=raft_iters,
+            )
+            new = is_new_seq.to(device=w6.device, dtype=torch.bool).reshape(-1, 1, 1, 1)
+            w6 = torch.where(new, torch.zeros_like(w6), w6)
 
-        s2 = _enhance(model, w6, L2, enh_scale, rows)
-        H2 = torch.clamp(inp[:, rows] / s2, EPS, 1.0)
-        # new-sequence quirk (model/model.py:330-332): warped previous := H2
-        w6 = torch.where(new, torch.cat([H2, H2], dim=-1), w6[:, rows]).contiguous()
-        H5 = model.denoise_2([w6, H2, s2], anchor=[H2, s2])
-
-    H3 = H5[..., :3].float().contiguous()
-    s3 = H5[..., 3:].float().contiguous()
-    return (H2.float(), H3, s3), {"last_H3": H3, "last_s3": s3}
+            s2 = _enhance(model, w6, L2, enh_scale, rows)
+            with spans.span("zt.infer.denoise_2"):
+                H2 = torch.clamp(inp[:, rows] / s2, EPS, 1.0)
+                # new-sequence quirk (model/model.py:330-332): warped previous := H2
+                w6 = torch.where(new, torch.cat([H2, H2], dim=-1), w6[:, rows]).contiguous()
+                H5 = model.denoise_2([w6, H2, s2], anchor=[H2, s2])
+                H3 = H5[..., :3].float().contiguous()
+                s3 = H5[..., 3:].float().contiguous()
+                return (H2.float(), H3, s3), {"last_H3": H3, "last_s3": s3}
 
 
 def _enhance(model: ZeroTIG, w6: torch.Tensor, L2: torch.Tensor, enh_scale: int, rows: slice) -> torch.Tensor:
-    h, w = L2.shape[1], L2.shape[2]
-    if enh_scale > 1 and (h % enh_scale or w % enh_scale):
-        warnings.warn(
-            f"enh_scale={enh_scale} requested but frame {h}x{w} is not "
-            f"divisible by it; running the exact full-resolution enhancer "
-            f"instead (the benchmark point you measure is NOT the half-res "
-            f"one)",
-            stacklevel=3,
-        )
-    if enh_scale <= 1 or h % enh_scale or w % enh_scale:
-        return model.enhance([w6[:, rows].contiguous(), L2[:, rows].contiguous()])
-    # the resize is per channel, so the two parts resize apart and stay
-    # two inputs of the first launch. A band of the small frame would need
-    # halo rows of its own, and the resize back a row across the band's
-    # edge: the whole frame it is, on every rank of a row-sharded scene
-    small = (h // enh_scale, w // enh_scale)
-    s2 = model.enhance([resize_bilinear(w6, small), resize_bilinear(L2, small)])
-    return resize_bilinear(s2, (h, w))[:, rows].contiguous()
+    with spans.span("zt.infer.enhancer"):
+        h, w = L2.shape[1], L2.shape[2]
+        if enh_scale > 1 and (h % enh_scale or w % enh_scale):
+            warnings.warn(
+                f"enh_scale={enh_scale} requested but frame {h}x{w} is not "
+                f"divisible by it; running the exact full-resolution enhancer "
+                f"instead (the benchmark point you measure is NOT the half-res "
+                f"one)",
+                stacklevel=3,
+            )
+        if enh_scale <= 1 or h % enh_scale or w % enh_scale:
+            return model.enhance([w6[:, rows].contiguous(), L2[:, rows].contiguous()])
+        # the resize is per channel, so the two parts resize apart and stay
+        # two inputs of the first launch. A band of the small frame would need
+        # halo rows of its own, and the resize back a row across the band's
+        # edge: the whole frame it is, on every rank of a row-sharded scene
+        small = (h // enh_scale, w // enh_scale)
+        s2 = model.enhance([resize_bilinear(w6, small), resize_bilinear(L2, small)])
+        return resize_bilinear(s2, (h, w))[:, rows].contiguous()
 
 
 class TrainOutputs(NamedTuple):
@@ -210,9 +215,10 @@ def forward_train(
     go to f32 at the boundary to the loss, as ``_forward_train_xpack``
     (:447-616) without its packed layout.
     """
-    first = train_denoise_1(model, frame)
-    w6 = warped_state(model, carry, first.L2.detach(), is_new_seq, of_scale=of_scale, raft_iters=raft_iters)
-    return forward_train_core(model, first, w6, bn_train=bn_train)
+    with spans.span("zt.train.forward"):
+        first = train_denoise_1(model, frame)
+        w6 = warped_state(model, carry, first.L2.detach(), is_new_seq, of_scale=of_scale, raft_iters=raft_iters)
+        return forward_train_core(model, first, w6, bn_train=bn_train)
 
 
 class Denoised1(NamedTuple):

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core import spans
 from ...ops.padding import pad8_replicate
 from ...ops.sampling import coords_grid
 from .corr import build_corr_pyramid, lookup_corr
@@ -63,35 +64,36 @@ class RAFT(nn.Module):
         ``return_predictions``, (flow_low, (iters, B, 8h, 8w, 2) flows).
         ``dtype``: the training path's working dtype (the inference path
         takes the one ``prepare`` set)."""
-        ub = self.update_block
-        dtype = ub.dtype if dtype is None else dtype
-        image1 = 2.0 * (pad8_replicate(image1) / 255.0) - 1.0
-        image2 = 2.0 * (pad8_replicate(image2) / 255.0) - 1.0
-        b = image1.shape[0]
-        pair = torch.cat([image1.float(), image2.float()]).permute(0, 3, 1, 2)
-        fmaps = self.fnet(pair, dtype).permute(0, 2, 3, 1)
-        levels = build_corr_pyramid(fmaps[:b], fmaps[b:], CORR_LEVELS, dtype)
+        with spans.span("zt.raft"):
+            ub = self.update_block
+            dtype = ub.dtype if dtype is None else dtype
+            image1 = 2.0 * (pad8_replicate(image1) / 255.0) - 1.0
+            image2 = 2.0 * (pad8_replicate(image2) / 255.0) - 1.0
+            b = image1.shape[0]
+            pair = torch.cat([image1.float(), image2.float()]).permute(0, 3, 1, 2)
+            fmaps = self.fnet(pair, dtype).permute(0, 2, 3, 1)
+            levels = build_corr_pyramid(fmaps[:b], fmaps[b:], CORR_LEVELS, dtype)
 
-        cnet = self.cnet(image1.permute(0, 3, 1, 2), dtype).permute(0, 2, 3, 1)
-        net = torch.tanh(cnet[..., :HIDDEN_DIM]).contiguous()
-        inp = torch.relu(cnet[..., HIDDEN_DIM:]).contiguous()
+            cnet = self.cnet(image1.permute(0, 3, 1, 2), dtype).permute(0, 2, 3, 1)
+            net = torch.tanh(cnet[..., :HIDDEN_DIM]).contiguous()
+            inp = torch.relu(cnet[..., HIDDEN_DIM:]).contiguous()
 
-        h8, w8 = net.shape[1], net.shape[2]
-        coords0 = coords_grid(b, h8, w8, device=net.device)
-        coords1 = coords0
-        if return_predictions:
-            ups = []
+            h8, w8 = net.shape[1], net.shape[2]
+            coords0 = coords_grid(b, h8, w8, device=net.device)
+            coords1 = coords0
+            if return_predictions:
+                ups = []
+                for _ in range(iters):
+                    coords1 = coords1.detach()
+                    corr = lookup_corr(levels, coords1, CORR_RADIUS)
+                    net, mask, delta = ub(net, inp, corr, coords1 - coords0, dtype)
+                    coords1 = coords1 + delta.float()
+                    ups.append(convex_upsample_flow(coords1 - coords0, mask))
+                return coords1 - coords0, torch.stack(ups)
             for _ in range(iters):
-                coords1 = coords1.detach()
                 corr = lookup_corr(levels, coords1, CORR_RADIUS)
-                net, mask, delta = ub(net, inp, corr, coords1 - coords0, dtype)
-                coords1 = coords1 + delta.float()
-                ups.append(convex_upsample_flow(coords1 - coords0, mask))
-            return coords1 - coords0, torch.stack(ups)
-        for _ in range(iters):
-            corr = lookup_corr(levels, coords1, CORR_RADIUS)
-            flow = coords1 - coords0
-            net, delta = update_core(ub.kw, net, inp, corr, ub.flow_features(flow), flow)
-            coords1 = coords1 + delta
-        flow_low = coords1 - coords0
-        return flow_low, convex_upsample_flow(flow_low, ub.mask_head(net))
+                flow = coords1 - coords0
+                net, delta = update_core(ub.kw, net, inp, corr, ub.flow_features(flow), flow)
+                coords1 = coords1 + delta
+            flow_low = coords1 - coords0
+            return flow_low, convex_upsample_flow(flow_low, ub.mask_head(net))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import build
+from ..core import spans
 from .fused_conv import ConvWeights, conv_weights, fused_conv_reference, launch_k1
 
 BF16 = torch.bfloat16
@@ -50,5 +50,5 @@ def conv3x3_bf16(
     if x.device.type == "cpu":
         return conv3x3_bf16_reference(x, w, b, out_dtype=out_dtype)
     out = launch_k1([x.to(BF16)], _weights(w, b), out_dtype=out_dtype)
-    build.COUNTS["conv3x3_bf16"] += 1
+    spans.COUNTS["conv3x3_bf16"] += 1
     return out

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import spans
 from ..kernels import build
 
 # the C entry's kind for each (input, output) dtype
@@ -77,7 +78,7 @@ def _launch(x: torch.Tensor, out_dtype: torch.dtype, name: str) -> torch.Tensor:
     )
     # 82, cudaErrorCooperativeLaunchTooLarge: more images than resident blocks
     build.check(code, name)
-    build.COUNTS["equalize_u8"] += 1
+    spans.COUNTS["equalize_u8"] += 1
     return out
 
 

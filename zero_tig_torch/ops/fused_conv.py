@@ -19,8 +19,8 @@ Operands are bf16 (fast mode) or f32 (highest mode); the sum and the
 epilogue are f32; the output has the operand type unless ``out_dtype``
 asks for f32. ``fused_conv`` launches the kernel for CUDA tensors and runs
 ``fused_conv_reference``, its plain PyTorch twin, for CPU tensors, and
-counts each launch under its kernel: ``fused_conv`` (bf16) or
-``fused_conv_f32``.
+counts each launch under its kernel in ``core/spans.py::COUNTS``:
+``fused_conv`` (bf16) or ``fused_conv_f32``.
 """
 
 from __future__ import annotations
@@ -28,11 +28,13 @@ from __future__ import annotations
 import functools
 import math
 import struct
+import time
 from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from ..core import spans
 from ..kernels import build
 
 ACTS = {"none": 0, "relu": 1, "leaky": 2, "sigmoid": 3, "tanh": 4, "sigmoid_clip": 5}
@@ -415,7 +417,7 @@ def fused_conv(
             lo=lo, hi=hi, out_dtype=out_dtype,
         )
     out = launch_k1(inputs, cw, act=act, residual=residual, anchor=anchor, lo=lo, hi=hi, out_dtype=out_dtype)
-    build.COUNTS["fused_conv_f32" if inputs[0].dtype == torch.float32 else "fused_conv"] += 1
+    spans.COUNTS["fused_conv_f32" if inputs[0].dtype == torch.float32 else "fused_conv"] += 1
     return out
 
 
@@ -437,7 +439,10 @@ def launch_k1(
     cannot take, and no launch gives way to the other kernel or to the twin. The wrappers
     ``fused_conv`` and ``conv3x3_bf16`` call it and count the launch under
     their own names. A frame makes over a hundred of these calls, so the
-    checks read each tensor's attributes once."""
+    checks read each tensor's attributes once. While a profiler records,
+    the call counts in the session counters ``k1.launches`` and
+    ``k1.host_ns`` (``core/spans.py``)."""
+    t0 = time.perf_counter_ns() if spans.on() else 0
     x0 = inputs[0]
     dtype, dev = x0.dtype, x0.device
     kh, kw, cin, cout = cw.w.shape
@@ -509,4 +514,6 @@ def launch_k1(
             stream,
         )
     build.check(code, f"fused_conv ({plan.kernel})")
+    if t0:
+        spans.count_k1(time.perf_counter_ns() - t0)
     return out

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import spans
 from ..kernels import build
 
 
@@ -63,7 +64,7 @@ def gru_reset(zr: torch.Tensor, net: torch.Tensor, out_dtype: torch.dtype) -> to
         build.stream_handle(net.device),
     )
     build.check(code, "gru_reset")
-    build.COUNTS["gru"] += 1
+    spans.COUNTS["gru"] += 1
     return out
 
 
@@ -92,5 +93,5 @@ def gru_update(
         build.stream_handle(net.device),
     )
     build.check(code, "gru_update")
-    build.COUNTS["gru"] += 1
+    spans.COUNTS["gru"] += 1
     return tuple(outs[dt] for dt in out_dtypes)

@@ -16,10 +16,10 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..core import spans
 from ..core.config import Config
 from ..core.precision import numerics
 from ..data import create_dataset
-from ..kernels import build
 from ..models import build_model
 from ..pipeline.steps import init_carry, init_train_state, predict_step
 from .mesh import Mesh, make_mesh, replicated, shard_params
@@ -53,10 +53,10 @@ def predict_scenes(mesh: Mesh, config: Config, state_dict: dict) -> dict:
                         size=(config.frame_width, config.frame_height))
     outs = {}
     _sync(mesh.device)
-    build.reset_counts()
+    spans.reset_counts()
     n = predict_scenes_spmd(config, ds, model, lambda p, *o: outs.__setitem__(p, tuple(x.cpu() for x in o)), mesh)
     _sync(mesh.device)
-    return {"outputs": outs, "count": n, "launches": dict(build.COUNTS), "backend": mesh.backend}
+    return {"outputs": outs, "count": n, "launches": dict(spans.COUNTS), "backend": mesh.backend}
 
 
 def predict_banded(mesh: Mesh, state_dict: dict, precision: str, frames, carry: dict, flags, kw: dict) -> dict:
@@ -65,14 +65,14 @@ def predict_banded(mesh: Mesh, state_dict: dict, precision: str, frames, carry: 
     others hold the same whole frames), the last carry, the launches."""
     model = build_model(state_dict, device=mesh.device, precision=precision)
     _sync(mesh.device)
-    build.reset_counts()
+    spans.reset_counts()
     outs = []
     for frame, flag in zip(frames, flags):
         (H2, H3, s3), carry = predict_step_banded(model, frame, carry, bool(flag), mesh, **kw)
         if mesh.spatial_index == 0:
             outs.append((H2.cpu(), H3.cpu(), s3.cpu()))
     _sync(mesh.device)
-    return {"outputs": outs, "carry": {k: v.cpu() for k, v in carry.items()}, "launches": dict(build.COUNTS),
+    return {"outputs": outs, "carry": {k: v.cpu() for k, v in carry.items()}, "launches": dict(spans.COUNTS),
             "backend": mesh.backend}
 
 
@@ -92,7 +92,7 @@ def train_steps(mesh: Mesh, config: Config, state_dict: dict, frames, carry: dic
     kw = dict(halo=halo, of_scale=config.of_scale, raft_iters=config.raft_iters, is_wb=config.is_wb)
     steps = []
     _sync(mesh.device)
-    build.reset_counts()
+    spans.reset_counts()
     for k, bn_train in enumerate(bn_trains):
         loss, new_carry = spmd_loss_and_grads(state, frames[d, k], bool(flags[d][k]), mesh, bn_train=bn_train, **kw)
         grads = {names[id(p)]: p.grad.cpu() for p in state.optimizer.params}
@@ -105,7 +105,7 @@ def train_steps(mesh: Mesh, config: Config, state_dict: dict, frames, carry: dic
         steps.append({"loss": loss.cpu(), "grads": grads, "trained": trained,
                       "carry": {n: v.cpu() for n, v in new_carry.items()}})
     _sync(mesh.device)
-    return {"steps": steps, "launches": dict(build.COUNTS), "replicated": replicated(mesh, state.model),
+    return {"steps": steps, "launches": dict(spans.COUNTS), "replicated": replicated(mesh, state.model),
             "backend": mesh.backend}
 
 

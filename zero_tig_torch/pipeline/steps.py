@@ -8,7 +8,8 @@ PyTorch runs eagerly, so a chunk is a Python loop over its frames;
 ``emit="u8"`` quantises H2 and H3 on the device with the reference's PNG
 formula and drops s3 from the output (it lives on in the carry). Frames may
 be uint8 (divided by 255 here) or float in [0, 1]; they run on the model's
-device.
+device. While a profiler records, the entry points and their stages open
+the ``zt.*`` spans of ``core/spans.py``.
 
 The optimizer is the JAX package's, in its order (train.py:98, :130): the
 gradients are clipped to a global norm of 5.0, weight decay 3e-4 is added
@@ -23,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.config import Config
 from ..core.device import resolve_device
 from ..core.precision import numerics
@@ -32,8 +34,9 @@ from ..models.network import ZeroTIG, forward_inference, forward_train
 
 
 def _norm_frames(frames, device: torch.device) -> torch.Tensor:
-    t = (frames if torch.is_tensor(frames) else torch.as_tensor(np.asarray(frames))).to(device)
-    return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
+    with spans.span("zt.h2d"):
+        t = (frames if torch.is_tensor(frames) else torch.as_tensor(np.asarray(frames))).to(device)
+        return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
 
 
 def _carry_on(carry: dict, device: torch.device) -> dict:
@@ -87,18 +90,19 @@ def predict_chunk(
     emit="u8":  ((H2s_u8, H3s_u8), final_carry)."""
     if emit not in ("f32", "u8"):
         raise ValueError(f"emit must be 'f32' or 'u8', not {emit!r}")
-    dev = model.device
-    frames = _norm_frames(frames, dev)
-    flags = torch.as_tensor(is_new_seq, device=dev)
-    carry = _carry_on(carry, dev)
-    outs = []
-    for k in range(frames.shape[0]):
-        (H2, H3, s3), carry = forward_inference(
-            model, frames[k], carry, flags[k], of_scale=of_scale, raft_iters=raft_iters,
-            enh_scale=enh_scale,
-        )
-        outs.append((_quantize_u8(H2), _quantize_u8(H3)) if emit == "u8" else (H2, H3, s3))
-    return tuple(torch.stack(s) for s in zip(*outs)), carry
+    with spans.span("zt.predict_chunk"):
+        dev = model.device
+        frames = _norm_frames(frames, dev)
+        flags = torch.as_tensor(is_new_seq, device=dev)
+        carry = _carry_on(carry, dev)
+        outs = []
+        for k in range(frames.shape[0]):
+            (H2, H3, s3), carry = forward_inference(
+                model, frames[k], carry, flags[k], of_scale=of_scale, raft_iters=raft_iters,
+                enh_scale=enh_scale,
+            )
+            outs.append((_quantize_u8(H2), _quantize_u8(H3)) if emit == "u8" else (H2, H3, s3))
+        return tuple(torch.stack(s) for s in zip(*outs)), carry
 
 
 class Adam:
@@ -118,19 +122,20 @@ class Adam:
     @torch.no_grad()
     def step(self) -> None:
         """Apply one update from the parameters' ``.grad`` and clear them."""
-        c = self.config
-        grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        clipped = norm >= c.grad_clip
-        self.count += 1
-        bc1 = 1.0 - c.adam_beta1 ** self.count
-        bc2 = 1.0 - c.adam_beta2 ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(clipped, g / norm * c.grad_clip, g) + c.weight_decay * p
-            mu.copy_((1.0 - c.adam_beta1) * g + c.adam_beta1 * mu)
-            nu.copy_((1.0 - c.adam_beta2) * (g * g) + c.adam_beta2 * nu)
-            p.add_(-c.lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)))
-            p.grad = None
+        with spans.span("zt.train.adam"):
+            c = self.config
+            grads = [p.grad for p in self.params]
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            clipped = norm >= c.grad_clip
+            self.count += 1
+            bc1 = 1.0 - c.adam_beta1 ** self.count
+            bc2 = 1.0 - c.adam_beta2 ** self.count
+            for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+                g = torch.where(clipped, g / norm * c.grad_clip, g) + c.weight_decay * p
+                mu.copy_((1.0 - c.adam_beta1) * g + c.adam_beta1 * mu)
+                nu.copy_((1.0 - c.adam_beta2) * (g * g) + c.adam_beta2 * nu)
+                p.add_(-c.lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)))
+                p.grad = None
 
 
 def make_optimizer(config: Config, params: list[torch.Tensor]) -> Adam:
@@ -181,17 +186,20 @@ def train_step(
     (train.py:115-138: only epoch 0 trains on batch statistics)."""
     model = state.model
     dev = model.device
-    frame = _norm_frames(frame, dev)
-    with numerics(model.precision):  # highest: TF32 off, backward included
-        outputs, carry = forward_train(
-            model, frame, _carry_on(state.carry, dev), torch.as_tensor(is_new_seq, device=dev),
-            of_scale=of_scale, raft_iters=raft_iters, bn_train=bn_train,
-        )
-        loss = zero_tig_loss(frame, outputs, is_wb=is_wb)
-        loss.backward()
-        state.optimizer.step()
-    model.prepared = False  # the kernels' weight operands are stale now
-    return TrainState(model, state.optimizer, carry), loss.detach()
+    with spans.span("zt.train.step"):
+        frame = _norm_frames(frame, dev)
+        with numerics(model.precision):  # highest: TF32 off, backward included
+            outputs, carry = forward_train(
+                model, frame, _carry_on(state.carry, dev), torch.as_tensor(is_new_seq, device=dev),
+                of_scale=of_scale, raft_iters=raft_iters, bn_train=bn_train,
+            )
+            with spans.span("zt.train.loss"):
+                loss = zero_tig_loss(frame, outputs, is_wb=is_wb)
+            with spans.span("zt.train.backward"):
+                loss.backward()
+            state.optimizer.step()
+        model.prepared = False  # the kernels' weight operands are stale now
+        return TrainState(model, state.optimizer, carry), loss.detach()
 
 
 def train_chunk(
