@@ -49,7 +49,8 @@ def test_off_without_a_profiler(model):
     counts = dict(spans.COUNTS)
     _chunk(model, 1)
     assert spans.records() == []
-    assert spans.counters() == {**counts, "k1.launches": 0, "k1.host_ns": 0, "raft.calls": 0, "raft.graph_replays": 0}
+    assert spans.counters() == {**counts, "k1.launches": 0, "k1.host_ns": 0, "raft.calls": 0, "raft.graph_replays": 0,
+                                "flowseq.pairs": 0, "flowseq.warm_starts": 0}
 
 
 def test_predict_chunk_records_the_tree(model):

@@ -34,8 +34,11 @@ them, counts the captures (``raft_graph_capture``) and replays
 only while a profiler records: ``k1.launches``, the calls of
 ``ops/fused_conv.py::launch_k1``, and ``k1.host_ns``, the host time inside
 them from entry to return; ``raft.calls``, the calls of ``flow_graphed``,
-and ``raft.graph_replays``, those that replayed. ``counters()`` returns
-``COUNTS`` and the session counters.
+and ``raft.graph_replays``, those that replayed; ``flowseq.pairs``, the
+pairs ``flowtools/sequence.py::flow_chunk`` computed, and
+``flowseq.warm_starts``, those of them that started from the previous
+pair's forward-interpolated flow. ``counters()`` returns ``COUNTS`` and
+the session counters.
 
 Spans nest on one thread: the program opens them on the thread that calls
 its entry points (autograd's backward opens none).
@@ -51,7 +54,8 @@ from torch.autograd import profiler as _prof
 
 COUNTS = {"fused_conv": 0, "fused_conv_f32": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0}
 GRAPHS = {"raft_graph_capture": 0, "raft_graph_replay": 0}
-_SESSION = {"k1.launches": 0, "k1.host_ns": 0, "raft.calls": 0, "raft.graph_replays": 0}
+_SESSION = {"k1.launches": 0, "k1.host_ns": 0, "raft.calls": 0, "raft.graph_replays": 0,
+            "flowseq.pairs": 0, "flowseq.warm_starts": 0}
 
 _NULL = contextlib.nullcontext()
 _records: list[list] = []  # [name, parent index, host start ns, host end ns, start event, end event]
@@ -145,6 +149,13 @@ def count_raft(replayed: bool) -> None:
     if _prof._is_profiler_enabled:
         _SESSION["raft.calls"] += 1
         _SESSION["raft.graph_replays"] += replayed
+
+
+def count_flowseq(warm: bool) -> None:
+    """One pair of a flow sequence, ``warm``-started or not (while recording)."""
+    if _prof._is_profiler_enabled:
+        _SESSION["flowseq.pairs"] += 1
+        _SESSION["flowseq.warm_starts"] += warm
 
 
 def records() -> list[dict]:

@@ -1,6 +1,6 @@
 """The flow sidecar: model registry, benchmark, validation, submissions and
-supervised training; the exports of ``zero_tig_tpu/flowtools/__init__.py``
-(:1-36)."""
+supervised training, the exports of ``zero_tig_tpu/flowtools/__init__.py``
+(:1-36); and RAFT's warm-started sequence entry, ``flow_chunk``."""
 
 from .benchmark import benchmark_all, benchmark_model
 from .metrics import flow_metrics
@@ -10,6 +10,7 @@ from .registry import (
     get_flow_model,
     register_flow_model,
 )
+from .sequence import flow_chunk
 from .submit import write_kitti_submission, write_sintel_submission
 from .train import (
     FlowTrainState,
@@ -30,6 +31,7 @@ __all__ = [
     "available_models",
     "benchmark_all",
     "benchmark_model",
+    "flow_chunk",
     "flow_metrics",
     "get_flow_model",
     "infer_pair",

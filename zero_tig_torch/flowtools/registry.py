@@ -71,15 +71,20 @@ def _init(cls) -> Callable[..., nn.Module]:
     return init_fn
 
 
-def _raft_forward(model: RAFT, img1, img2, iters: int, precision: str = "highest"):
-    """RAFT's inference loop: K1 and the GRU kernel take the update core
-    and the mask head. Their weight operands are prepared again when the
-    precision changed or a parameter was written since (a training step)."""
+def prepare_raft(model: RAFT, precision: str) -> None:
+    """Prepare the weight operands of RAFT's inference loop (K1 and the GRU
+    kernel take the update core and the mask head) again when the precision
+    changed or a parameter was written since (a training step)."""
     dtype = compute_dtype(precision)
     stamp = (dtype, tuple(p._version for p in model.parameters()))
     if getattr(model, "prepared_stamp", None) != stamp:
         model.prepare(dtype)
         model.prepared_stamp = stamp
+
+
+def _raft_forward(model: RAFT, img1, img2, iters: int, precision: str = "highest"):
+    """RAFT's inference loop on the operands ``prepare_raft`` keeps."""
+    prepare_raft(model, precision)
     with torch.no_grad(), numerics(precision):
         return model(img1, img2, iters)
 

@@ -3,8 +3,10 @@ MPI-Sintel, 16-bit KITTI PNGs for KITTI 2012/2015.
 
 Port of ``zero_tig_tpu/flowtools/submit.py`` (:22-86; reference
 ptlflow_scripts/test.py:240-295). Frames are read and flows written with
-the port's codec; the flow is written at the size the model gives (the
-padded size, for RAFT), as JAX writes it.
+the port's codec. By default each pair runs cold and the flow is written at
+the size the model gives (the padded size, for RAFT), as JAX writes it;
+``write_sintel_submission(..., warm_start=True)`` is RAFT's published Sintel
+submission instead (``flowtools/sequence.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from .. import native
 from ..core.device import resolve_device
 from ..utils.flow_io import write_flo, write_flow_kitti
 from .registry import get_flow_model
+from .sequence import flow_chunk
+
+CHUNK = 8  # frames a warm-started scene hands to ``flow_chunk`` at a time
 
 
 def _flow_fn(model_name: str, model, iters: int | None, device, precision: str):
@@ -43,22 +48,65 @@ def write_sintel_submission(
     iters: int | None = None,
     device: str | torch.device | None = None,
     precision: str = "highest",
+    warm_start: bool = False,
 ) -> int:
-    """frames_root/<scene>/frame_NNNN.png -> out_root/<scene>/frame_NNNN.flo.
-    Returns the number of flow files written."""
+    """frames_root/<scene>/frame_NNNN.png -> out_root/<scene>/frame_NNNN.flo,
+    the flow from each frame to the next, named after the first. Returns the
+    number of flow files written.
+
+    ``warm_start=False``: every pair runs cold through the registry's
+    ``forward_fn`` and the flow is written at the size the model gives
+    (RAFT's padded size), as the JAX package writes it. ``warm_start=True``
+    (``raft`` only): RAFT's published Sintel submission
+    (``evaluate.py::create_sintel_submission --warm_start``, which passes
+    ``iters=32``): each scene runs through ``flow_chunk``, every pair after a
+    scene's first starting from the previous pair's forward-interpolated
+    flow, each frame read and copied to the device once, and the flow is
+    written at the frame's size (``InputPadder.unpad``)."""
+    if warm_start:
+        return _sintel_warm(model_name, model, frames_root, out_root, iters, device, precision)
     flow = _flow_fn(model_name, model, iters, device, precision)
     count = 0
+    for _, frames, odir in _sintel_scenes(frames_root, out_root):
+        for f1, f2 in zip(frames[:-1], frames[1:]):
+            write_flo(os.path.join(odir, f"{_stem(f1)}.flo"), flow(f1, f2))
+            count += 1
+    return count
+
+
+def _stem(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+def _sintel_scenes(frames_root: str, out_root: str):
+    """(scene, its sorted frame paths, its output directory), a scene a
+    directory; the output directory is made."""
     for scene in sorted(os.listdir(frames_root)):
         sdir = os.path.join(frames_root, scene)
         if not os.path.isdir(sdir):
             continue
-        frames = sorted(glob.glob(os.path.join(sdir, "*.png")))
         odir = os.path.join(out_root, scene)
         os.makedirs(odir, exist_ok=True)
-        for f1, f2 in zip(frames[:-1], frames[1:]):
-            stem = os.path.splitext(os.path.basename(f1))[0]
-            write_flo(os.path.join(odir, f"{stem}.flo"), flow(f1, f2))
-            count += 1
+        yield scene, sorted(glob.glob(os.path.join(sdir, "*.png"))), odir
+
+
+def _sintel_warm(model_name, model, frames_root, out_root, iters, device, precision) -> int:
+    if model_name != "raft":
+        raise ValueError(f"warm start needs RAFT's flow_init, not {model_name!r}")
+    iters = iters or get_flow_model(model_name).default_iters
+    device = resolve_device(device)
+    count = 0
+    for _, frames, odir in _sintel_scenes(frames_root, out_root):
+        carry: dict = {}
+        for s in range(0, len(frames), CHUNK):
+            batch = frames[s:s + CHUNK]
+            chunk = torch.from_numpy(np.stack([native.read_rgb(f) for f in batch]))[:, None].to(device)
+            (flows, _), carry = flow_chunk(model, chunk, carry, [s + i == 0 for i in range(len(batch))], iters,
+                                           precision)
+            # the flows of frames s.. (of 1.. in a scene's first chunk), each named after the frame before
+            for f1, flow in zip(frames[max(s - 1, 0):s + len(batch) - 1], flows.cpu().numpy(), strict=True):
+                write_flo(os.path.join(odir, f"{_stem(f1)}.flo"), flow[0])
+                count += 1
     return count
 
 

@@ -89,7 +89,7 @@ def update_cache(
         size = (h // of_scale, w // of_scale)
         last_tmp = resize_bilinear(last_H3, size) * 255.0  # NOT equalised
         l2_tmp = equalize01(resize_bilinear(L2, size))  # equalised
-        flow_up = raft.flow_graphed(last_tmp, l2_tmp, iters=raft_iters)  # static on a card: used at once
+        _, flow_up = raft.flow_graphed(last_tmp, l2_tmp, iters=raft_iters)  # static on a card: used at once
         return warp_tensor(flow_up, torch.cat([last_H3, last_s3], dim=-1))
 
 

@@ -14,13 +14,18 @@ iteration's convex-upsampled flow, differentiable, on the plain modules
 kernel), ``coords1`` detached at the top of each iteration and the mask head
 run each iteration. The cnet's BatchNorm stays on its running statistics.
 
+``flow_init`` (B, h, w, 2) f32 at the 1/8 grid is the warm start of the
+reference's ``RAFT.forward(..., flow_init)``: added to ``coords1`` before the
+first iteration, so both returned flows include it.
+
 ``flow_graphed`` is the inference path for the Zero-TIG network
-(``models/network.py::update_cache``): on a card it captures the whole pass,
-padding to convex upsample, as one CUDA graph and replays it on later calls,
-so a pass's launches (the encoders, the correlation pyramid, 12 iterations
-of 13 hand-written kernels with their ATen glue, the mask head) cost the
-host one graph launch. The graph belongs to its ``RAFT`` and goes with it;
-``graph_key`` says when it is captured again.
+(``models/network.py::update_cache``) and for warm-started flow along a
+sequence (``flowtools/sequence.py::flow_chunk``): on a card it captures the
+whole pass, padding to convex upsample, as one CUDA graph and replays it on
+later calls, so a pass's launches (the encoders, the correlation pyramid,
+the iterations of 13 hand-written kernels with their ATen glue, the mask
+head) cost the host one graph launch. The graph belongs to its ``RAFT`` and
+goes with it; ``graph_key`` says when it is captured again.
 """
 
 from __future__ import annotations
@@ -69,19 +74,21 @@ class RAFT(nn.Module):
 
     def forward(
         self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12, *,
-        return_predictions: bool = False, dtype: torch.dtype | None = None,
+        flow_init: torch.Tensor | None = None, return_predictions: bool = False,
+        dtype: torch.dtype | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(flow_low, flow_up) between (B, H, W, 3) frames in [0, 255]; with
         ``return_predictions``, (flow_low, (iters, B, 8h, 8w, 2) flows).
+        ``flow_init``: the warm start, (B, h, w, 2) f32 at the 1/8 grid.
         ``dtype``: the training path's working dtype (the inference path
         takes the one ``prepare`` set)."""
         with spans.span("zt.raft"):
             if not return_predictions:
-                return self._infer(image1, image2, iters)
+                return self._infer(image1, image2, iters, flow_init)
             ub = self.update_block
             dtype = ub.dtype if dtype is None else dtype
             levels, net, inp, coords0 = self._encode(image1, image2, dtype)
-            coords1 = coords0
+            coords1 = coords0 if flow_init is None else coords0 + flow_init
             ups = []
             for _ in range(iters):
                 coords1 = coords1.detach()
@@ -106,11 +113,12 @@ class RAFT(nn.Module):
         inp = torch.relu(cnet[..., HIDDEN_DIM:]).contiguous()
         return levels, net, inp, coords_grid(b, net.shape[1], net.shape[2], device=net.device)
 
-    def _infer(self, image1: torch.Tensor, image2: torch.Tensor, iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def _infer(self, image1: torch.Tensor, image2: torch.Tensor, iters: int,
+               flow_init: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The inference path: K2 on the operands ``prepare`` built."""
         ub = self.update_block
         levels, net, inp, coords0 = self._encode(image1, image2, ub.dtype)
-        coords1 = coords0
+        coords1 = coords0 if flow_init is None else coords0 + flow_init
         for _ in range(iters):
             corr = lookup_corr(levels, coords1, CORR_RADIUS)
             flow = coords1 - coords0
@@ -119,42 +127,46 @@ class RAFT(nn.Module):
         flow_low = coords1 - coords0
         return flow_low, convex_upsample_flow(flow_low, ub.mask_head(net))
 
-    def graph_key(self, image1: torch.Tensor, image2: torch.Tensor, iters: int) -> tuple:
+    def graph_key(self, image1: torch.Tensor, image2: torch.Tensor, iters: int,
+                  flow_init: torch.Tensor | None = None) -> tuple:
         """What a captured inference pass holds fixed besides the weights'
-        addresses: each input's shape, strides, dtype and device, ``iters``,
-        the prepared dtype and operands (``prepare`` builds new ones when
-        weights load or the precision changes) and the two TF32 switches
-        (``core/precision.py::numerics``)."""
+        addresses: each input's shape, strides, dtype and device (None for
+        an absent ``flow_init``), ``iters``, the prepared dtype and operands
+        (``prepare`` builds new ones when weights load or the precision
+        changes) and the two TF32 switches (``core/precision.py::numerics``)."""
         ub = self.update_block
         return (
-            *((tuple(t.shape), t.stride(), t.dtype, t.device) for t in (image1, image2)),
+            *(None if t is None else (tuple(t.shape), t.stride(), t.dtype, t.device)
+              for t in (image1, image2, flow_init)),
             iters, ub.dtype, id(ub.kw),
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
         )
 
-    def flow_graphed(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12) -> torch.Tensor:
-        """``forward(image1, image2, iters)[1]``, the inference path's flow_up,
-        equal to it bit for bit. On a card the first call with a new
-        ``graph_key`` runs the pass eagerly, on a side stream, and captures
-        it; the next calls with that key copy the inputs into the graph's
-        own and replay it. A replay hands back the graph's static output,
-        which the next call overwrites: use it before calling again. While
-        a profiler records nothing is captured (its ranges and events would
+    def flow_graphed(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12,
+                     flow_init: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``forward(image1, image2, iters, flow_init=flow_init)``, the
+        inference path's (flow_low, flow_up), equal to it bit for bit. On a
+        card the first call with a new ``graph_key`` runs the pass eagerly,
+        on a side stream, and captures it; the next calls with that key copy
+        the inputs (``flow_init`` too, where given) into the graph's own and
+        replay it. A replay hands back the graph's static outputs, which the
+        next call overwrites: use them before calling again. While a
+        profiler records nothing is captured (its ranges and events would
         become graph nodes): the pass runs eagerly until a capture exists.
         On the CPU this is ``forward``."""
         g = self._graph
         if image1.device.type == "cuda":
-            key = self.graph_key(image1, image2, iters)
+            key = self.graph_key(image1, image2, iters, flow_init)
             if g is not None and g.key == key:
                 spans.count_raft(replayed=True)
                 with spans.span("zt.raft"):
-                    return g.replay(image1, image2)
+                    return g.replay(image1, image2, flow_init)
             if not spans.on():
                 self._graph = None  # the old graph's memory goes before the new one's fills
-                self._graph, flow_up = _FlowGraph.capture(self, key, image1, image2, iters)
-                return flow_up
+                self._graph, flows = _FlowGraph.capture(self, key, image1, image2, iters, flow_init)
+                return flows
         spans.count_raft(replayed=False)
-        return self(image1, image2, iters)[1]
+        return self(image1, image2, iters, flow_init=flow_init)
 
 
 # One capture stream a card for the whole process, as torch.cuda.graph keeps
@@ -177,44 +189,47 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
 class _FlowGraph:
     """One captured inference pass of a RAFT: its key, the operands it
     reads (held so that the key's ``id`` stays theirs) and the static inputs
-    and output. The pass's intermediates live in the graph's private memory
-    pool."""
+    (the two images and, where the pass has one, ``flow_init``) and outputs
+    (flow_low, flow_up). The pass's intermediates live in the graph's
+    private memory pool."""
 
     key: tuple
     kw: dict
     graph: torch.cuda.CUDAGraph
-    inputs: tuple[torch.Tensor, torch.Tensor]
-    output: torch.Tensor
+    inputs: tuple[torch.Tensor, ...]
+    outputs: tuple[torch.Tensor, torch.Tensor]
 
     @classmethod
     @torch.no_grad()
-    def capture(cls, raft: RAFT, key: tuple, image1: torch.Tensor, image2: torch.Tensor,
-                iters: int) -> tuple["_FlowGraph", torch.Tensor]:
-        """(the graph, this call's flow_up). The pass runs once eagerly on the
-        capture stream, which builds what the kernels set up at their first
-        launch (the kernel library, shared-memory limits, cuDNN and cuBLAS
-        state for that stream); its answer is this call's. Then it is
-        captured from copies of the inputs."""
+    def capture(cls, raft: RAFT, key: tuple, image1: torch.Tensor, image2: torch.Tensor, iters: int,
+                flow_init: torch.Tensor | None) -> tuple["_FlowGraph", tuple[torch.Tensor, torch.Tensor]]:
+        """(the graph, this call's (flow_low, flow_up)). The pass runs once
+        eagerly on the capture stream, which builds what the kernels set up
+        at their first launch (the kernel library, shared-memory limits,
+        cuDNN and cuBLAS state for that stream); its answer is this call's.
+        Then it is captured from copies of the inputs."""
         dev = image1.device
         main = torch.cuda.current_stream(dev)
         side = _capture_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            flow_up = raft._infer(image1, image2, iters)[1]
+            flows = raft._infer(image1, image2, iters, flow_init)
         main.wait_stream(side)
-        flow_up.record_stream(main)
+        for t in flows:
+            t.record_stream(main)
         graph = torch.cuda.CUDAGraph()
         # plain tensors even inside inference mode: a training step copies into them too
         with torch.inference_mode(False):
-            inputs = (image1.clone(), image2.clone())
+            inputs = tuple(t.clone() for t in (image1, image2, flow_init) if t is not None)
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                output = raft._infer(*inputs, iters)[1]
+                outputs = raft._infer(*inputs[:2], iters, *inputs[2:])
         spans.GRAPHS["raft_graph_capture"] += 1
-        return cls(key, raft.update_block.kw, graph, inputs, output), flow_up
+        return cls(key, raft.update_block.kw, graph, inputs, outputs), flows
 
-    def replay(self, image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
-        self.inputs[0].copy_(image1)
-        self.inputs[1].copy_(image2)
+    def replay(self, image1: torch.Tensor, image2: torch.Tensor,
+               flow_init: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+        for static, t in zip(self.inputs, (image1, image2, flow_init)):
+            static.copy_(t)
         self.graph.replay()
         spans.GRAPHS["raft_graph_replay"] += 1
-        return self.output
+        return self.outputs

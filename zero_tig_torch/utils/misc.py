@@ -110,7 +110,10 @@ def show_pic(pics, names, path: str, *, grid=(5, 6)) -> None:
 def forward_interpolate(flow) -> np.ndarray:
     """Forward-splat a (2, H, W) flow onto the regular grid (RAFT's warm
     start; utils/utils.py:254-282): scipy's nearest-neighbour ``griddata``
-    over the points the flow moves inside the frame -> (2, H, W) f32."""
+    over the points the flow moves inside the frame -> (2, H, W) f32. A host
+    copy, held against the JAX package; the warm-started sequence path
+    (``flowtools/sequence.py``) uses the device version in ``ops/splat.py``,
+    which gives the same flow without leaving the device."""
     from scipy import interpolate as sp_interpolate
 
     flow = _numpy(flow)
