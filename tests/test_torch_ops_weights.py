@@ -87,7 +87,7 @@ def test_warp_matches_jax_with_scale_swap():
     rng = np.random.default_rng(5)
     img = rng.uniform(0, 1, (1, 24, 40, 6)).astype(np.float32)
     flow = rng.normal(0, 1.5, (1, 8, 16, 2)).astype(np.float32)
-    ref, _ = j_warp(jnp.asarray(flow), jnp.asarray(img))
+    ref, _ = jax.jit(j_warp)(jnp.asarray(flow), jnp.asarray(img))
     got = warp_tensor(torch.from_numpy(flow), torch.from_numpy(img))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
     # the quirk is live: the same warp without the swap disagrees
@@ -101,7 +101,9 @@ def test_corr_pyramid_and_lookup_match_jax():
     f1 = rng.normal(0, 1, (1, 6, 8, 32)).astype(np.float32)
     f2 = rng.normal(0, 1, (1, 6, 8, 32)).astype(np.float32)
     coords = np.asarray(coords_grid(1, 6, 8)) + rng.normal(0, 2, (1, 6, 8, 2)).astype(np.float32)
-    ref = j_lookup(j_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4), jnp.asarray(coords), 4)
+    ref = jax.jit(lambda a, b, c: j_lookup(j_pyramid(a, b, 4), c, 4))(
+        jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(coords)
+    )
     levels = build_corr_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), 4, torch.float32)
     assert [tuple(lv.shape[-2:]) for lv in levels] == [(6, 8), (3, 4), (1, 2), (0, 1)]
     got = lookup_corr(levels, torch.from_numpy(coords), 4)

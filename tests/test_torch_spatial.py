@@ -6,6 +6,7 @@ own ``train_step`` at the JAX package's tolerances
 ``init_random_state_dict``, through the reference's state-dict keys into
 the JAX package where it takes part."""
 
+import functools
 import glob
 import os
 
@@ -78,10 +79,9 @@ def test_region_losses_match_jax_and_sum_to_the_frame(sd):
         band = type(outs)(*cut)
         got = float(zero_tig_loss(frame[:, s0:s0 + slice_h], band, region=Region(s0, own0, own1, h),
                                   factor=factor, ycc=ycc[:, s0:s0 + slice_h]))
-        ref = float(jax_loss(
+        ref = float(jax.jit(functools.partial(jax_loss, region=JaxRegion(s0, own0, own1, h)))(
             jnp.asarray(frame[:, s0:s0 + slice_h].numpy()), JaxTrainOutputs(*(jnp.asarray(t.numpy()) for t in cut)),
-            region=JaxRegion(s0, own0, own1, h), factor=jnp.asarray(factor.numpy()),
-            ycc=jnp.asarray(ycc[:, s0:s0 + slice_h].numpy()),
+            factor=jnp.asarray(factor.numpy()), ycc=jnp.asarray(ycc[:, s0:s0 + slice_h].numpy()),
         ))
         # f32 sums in another order
         assert got == pytest.approx(ref, rel=1e-6), (s0, got, ref)
