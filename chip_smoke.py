@@ -132,10 +132,6 @@ zero_tig_torch/csrc from the checkout, then:
      memory, the loss falling on one fixed batch), raft_small and pwc_lite
      2 steps, and RAFT's first step at 96x128 on the card against the CPU.
 
-Before phase 2 it prints one line on whether the native frame pipeline
-(zero_tig_torch/native/frameio.cc, libpng and libjpeg) builds and loads;
-that line is information, and no phase depends on it.
-
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel numbers. With --out DIR, the details also go to
 DIR/chip_smoke.json.
@@ -191,7 +187,6 @@ from zero_tig_torch.kernels import build
 from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
 from zero_tig_torch.models import build_model, init_random_state_dict, init_state_dict
 from zero_tig_torch.models.network import forward_train, reinit_enhancer
-from zero_tig_torch.native import frameio
 from zero_tig_torch.models.raft.update import update_core
 from zero_tig_torch.ops import gru
 from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
@@ -2292,20 +2287,6 @@ def phase12_flow_sidecar(report, smi, gen) -> dict:
     return side
 
 
-def frameio_build_line() -> str:
-    """One line of information, not a phase: whether the native frame
-    pipeline (host C++, libpng and libjpeg) builds where the script runs."""
-    t0 = time.perf_counter()
-    try:
-        frameio.library()
-        line = f"native frame pipeline (frameio.cc) built and loaded in {time.perf_counter() - t0:.2f} s"
-    except (RuntimeError, OSError) as e:  # the compiler's message, or the loader's (a missing libpng)
-        first = next((ln for ln in str(e).splitlines()[1:] if "error" in ln), str(e).splitlines()[0])
-        line = f"native frame pipeline (frameio.cc) does not build or load here: {first.strip()}"
-    print(line, flush=True)
-    return line
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description="Build the port's kernels and drive its main path on one card.")
     ap.add_argument("--out", type=Path, default=None, help="directory for chip_smoke.json (details)")
@@ -2322,13 +2303,12 @@ def main() -> int:
     build.library()
     build_s = time.perf_counter() - t0
     print(f"kernels built and loaded in {build_s:.1f} s", flush=True)
-    frameio_line = frameio_build_line()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sd = init_random_state_dict(SEED)
     fast = build_model(sd, device="cuda", precision="fast")
     highest = build_model(sd, device="cuda", precision="highest")
-    report: dict = {"device": smi, "build_s": build_s, "frameio": frameio_line}
+    report: dict = {"device": smi, "build_s": build_s}
 
     with precision.numerics("highest"):  # f32 twins hold f32 sums, not TF32
         errs = phase2_kernels(fast, highest, gen, report)

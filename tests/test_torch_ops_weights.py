@@ -117,7 +117,7 @@ def test_import_pulls_in_no_jax():
     banned = ("jax", "flax", "cv2", "PIL", "optax", "matplotlib")
     code = (
         "import sys, zero_tig_torch.pipeline.steps, zero_tig_torch.models, zero_tig_torch.data, zero_tig_torch.eval,"
-        " zero_tig_torch.core.train_ckpt, zero_tig_torch.native, zero_tig_torch.native.frameio, chip_smoke;"
+        " zero_tig_torch.core.train_ckpt, zero_tig_torch.native, chip_smoke;"
         "import zero_tig_torch.cli.train, zero_tig_torch.cli.predict, zero_tig_torch.cli.evals,"
         " zero_tig_torch.cli.run_pipeline, zero_tig_torch.cli.serve, zero_tig_torch.pipeline.spatial;"
         "import zero_tig_torch.utils, zero_tig_torch.flowtools, zero_tig_torch.flowtools.benchmark,"
@@ -135,7 +135,7 @@ def test_import_pulls_in_no_jax():
 def test_port_sources_name_no_jax():
     files = list((REPO / "zero_tig_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     files += list((REPO / "zero_tig_torch" / "csrc").glob("*.cu*"))
-    files += [REPO / "zero_tig_torch" / "native" / "pngio.cpp", REPO / "zero_tig_torch" / "native" / "frameio.cc"]
+    files += [REPO / "zero_tig_torch" / "native" / "pngio.cpp"]
     for f in files:
         text = f.read_text()
         assert "zero_tig_tpu" not in text.replace("zero_tig_tpu/", ""), f

@@ -1,10 +1,16 @@
 """RAFT's graphed inference path (``RAFT.flow_graphed``, reached through
-``models/network.py::update_cache``).
+``models/network.py::update_cache``), and the kernels' weight operands that
+its capture key holds.
 
 On the CPU, at the tiny size of the other port tests (64x48, of_scale 2, 2
 RAFT iterations): ``update_cache`` runs the eager pass and counts no
 capture or replay, the capture key follows the prepared operands, and
-``RAFT.forward``, the sidecar's entry, never replays. On a card (marker
+``RAFT.forward``, the sidecar's entry, never replays. Every writer of
+weights (the training steps, ``reinit_enhancer``, ``load_state_dict``,
+``restore_train_state``, ``shard_params``) and ``prepare_raft``'s change of
+precision leave an inference frame equal to that of a model built from the
+written weights, with the operands of exactly the written modules built
+again (``models/layers.py::kernel_operands``). On a card (marker
 ``card``; ``python -m pytest --noconftest -m card tests/test_torch_raft_graph.py``,
 since this directory's conftest loads JAX): at the cells' RAFT size the
 graph equals the eager pass bit for bit in both precisions, captures again
@@ -16,17 +22,23 @@ import weakref
 
 import pytest
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from zero_tig_torch.core import spans
 from zero_tig_torch.core.config import Config
 from zero_tig_torch.core.precision import numerics
+from zero_tig_torch.core.train_ckpt import restore_train_state, save_train_state
+from zero_tig_torch.flowtools.registry import get_flow_model, prepare_raft
 from zero_tig_torch.models import build_model, init_random_state_dict
-from zero_tig_torch.models.network import update_cache
+from zero_tig_torch.models.network import reinit_enhancer, update_cache
+from zero_tig_torch.models.raft.raft import RAFT
 from zero_tig_torch.ops.equalize import equalize01
 from zero_tig_torch.ops.resize import resize_bilinear
 from zero_tig_torch.ops.warp import warp_tensor
+from zero_tig_torch.parallel.mesh import make_mesh, shard_params
 from zero_tig_torch.pipeline import steps
+from zero_tig_torch.pipeline.spatial import train_step_spatial
 
 torch.set_num_threads(1)
 
@@ -71,22 +83,111 @@ def test_update_cache_on_the_cpu_is_the_eager_pass(state_dict):
     assert session["raft.calls"] == 1 and session["raft.graph_replays"] == 0
 
 
+def _config():
+    return Config(precision="highest", frame_height=FRAME[1], frame_width=FRAME[2], **KW)
+
+
 def test_graph_key_follows_the_prepared_operands(state_dict):
-    config = Config(precision="highest", frame_height=FRAME[1], frame_width=FRAME[2], **KW)
-    state = steps.init_train_state(config, state_dict, FRAME, device="cpu")
+    state = steps.init_train_state(_config(), state_dict, FRAME, device="cpu")
     raft = state.model.raft
+    kw = raft.update_block.kw
     a, b = (t[..., :3] * 255.0 for t in _frames(3, (1, 24, 32, 3))[:2])
     key = raft.graph_key(a, b, 2)
     assert raft.graph_key(a.clone(), b + 1.0, 2) == key  # values are no part of it
     state, _ = steps.train_step(state, torch.rand(FRAME), True, **KW)
-    assert raft.graph_key(a, b, 2) == key  # a training step prepares nothing
+    steps.predict_step(state.model, torch.rand(FRAME), state.carry, False, **KW)
+    # frozen RAFT keeps its operands through a training step and an
+    # inference frame, so its graph would not be captured again
+    assert raft.update_block.kw is kw and raft.graph_key(a, b, 2) == key
     assert raft.graph_key(a, b, 3) != key
     assert raft.graph_key(a[:, :16], b[:, :16], 2) != key
     assert raft.graph_key(a.to(torch.bfloat16), b, 2) != key
     with numerics("highest"):  # TF32 off
         assert raft.graph_key(a, b, 2) != key
-    state.model.prepare()
-    assert raft.graph_key(a, b, 2) != key
+    with torch.no_grad():  # a weight of the update block changes
+        raft.update_block.mask[2].bias.add_(1.0)
+    steps.train_step(state, torch.rand(FRAME), False, **KW)  # the training forward's flow branch sees it
+    assert raft.update_block.kw is not kw and raft.graph_key(a, b, 2) != key
+
+
+def _kernel_modules(model):
+    return {"enhance": model.enhance, "denoise_1": model.denoise_1, "denoise_2": model.denoise_2,
+            "raft": model.raft.update_block}
+
+
+def _train_step(state, _):
+    steps.train_step(state, torch.rand(FRAME, generator=torch.Generator().manual_seed(11)), True, **KW)
+
+
+def _train_step_spatial(state, _):
+    frame = torch.rand(FRAME, generator=torch.Generator().manual_seed(11))
+    train_step_spatial(state, frame, True, bands=2, halo=8, **KW)
+
+
+def _restore_train_state(state, tmp_path):
+    other = steps.init_train_state(_config(), init_random_state_dict(1), FRAME, device="cpu")
+    _train_step(other, None)
+    save_train_state(str(tmp_path / "state.pt"), other, epoch=0, step=1)
+    restore_train_state(str(tmp_path / "state.pt"), state)
+
+
+def _shard_params(state, _):
+    """Rank 0 of a one-rank gloo group: the values stay, the writes show."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        shard_params(make_mesh(1, 1, device="cpu"), state.model)
+    finally:
+        dist.destroy_process_group()
+
+
+def _switch_raft_precision(state, _):
+    """``prepare_raft`` to fast and back to highest: each time the registry's
+    RAFT gives the flow of a RAFT that holds the same weights and was
+    prepared in that precision only."""
+    raft = state.model.raft
+    flow = get_flow_model("raft").forward_fn
+    a, b = (t[..., :3] * 255.0 for t in _frames(4, (1, 24, 32, 3))[:2])
+    for precision in ("fast", "highest"):
+        prepare_raft(raft, precision)
+        fresh = RAFT()
+        fresh.load_state_dict(raft.state_dict())
+        assert all(map(torch.equal, flow(raft, a, b, 2, precision), flow(fresh, a, b, 2, precision))), precision
+
+
+# writer -> the modules whose operands it makes stale
+WRITERS = {
+    "train_step": (_train_step, {"enhance", "denoise_1", "denoise_2"}),
+    "train_step_spatial": (_train_step_spatial, {"enhance", "denoise_1", "denoise_2"}),
+    "reinit_enhancer": (lambda state, _: reinit_enhancer(state.model, torch.Generator().manual_seed(3)),
+                        {"enhance"}),
+    "load_state_dict": (lambda state, _: state.model.load_state_dict(init_random_state_dict(1)),
+                        {"enhance", "denoise_1", "denoise_2", "raft"}),
+    "restore_train_state": (_restore_train_state, {"enhance", "denoise_1", "denoise_2", "raft"}),
+    "shard_params": (_shard_params, {"enhance", "denoise_1", "denoise_2", "raft"}),
+    "prepare_raft": (_switch_raft_precision, {"raft"}),
+}
+
+
+@pytest.mark.parametrize("writer", list(WRITERS))
+def test_inference_after_a_writer_equals_a_fresh_model(state_dict, writer, tmp_path):
+    """After the writer, an inference frame equals, bit for bit, that of a
+    model built from the written weights, and exactly the written modules'
+    operands were built again."""
+    write, stale = WRITERS[writer]
+    state = steps.init_train_state(_config(), state_dict, FRAME, device="cpu")
+    model = state.model
+    frame, last_H3, last_s3 = _frames(5)
+    carry = {"last_H3": last_H3, "last_s3": last_s3}
+    (before, _, _), _ = steps.predict_step(model, frame, carry, False, **KW)
+    kw = {n: m.kw for n, m in _kernel_modules(model).items()}
+    write(state, tmp_path)
+    (got, _, _), _ = steps.predict_step(model, frame, carry, False, **KW)
+    fresh = build_model(model.state_dict(), device="cpu", precision="highest")
+    (want, _, _), _ = steps.predict_step(fresh, frame, carry, False, **KW)
+    assert torch.equal(got, want)
+    assert {n for n, m in _kernel_modules(model).items() if m.kw is not kw[n]} == stale
+    if writer not in ("shard_params", "prepare_raft"):  # these two leave the values as they were
+        assert not torch.equal(got, before)
 
 
 class _FakeGraph:
@@ -178,7 +279,7 @@ def test_graph_captures_again_only_for_a_new_key(state_dict):
     for seed in range(3):
         state, _ = steps.train_step(state, torch.rand(frame, device=dev), seed == 0, **KW)
     assert _graph_counts() == (1, 6)  # training steps replay the same graph
-    model.prepare()
+    model.raft.load_state_dict(model.raft.state_dict())  # RAFT's weights load again: new operands
     call(4)
     assert _graph_counts() == (2, 6)
     call(5, (1, 64, 128, 3))

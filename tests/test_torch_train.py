@@ -252,10 +252,13 @@ def test_second_step_and_inference_see_the_trained_weights(case):
     # inference on the trained model uses its new weights, not the snapshot
     # taken when it was built: the same outputs as a model built from them
     trained = state.model
-    assert not trained.prepared
+    trainable = (trained.enhance, trained.denoise_1, trained.denoise_2)
+    stale, raft_kw = [m.kw for m in trainable], trained.raft.update_block.kw
     sd2 = trained.state_dict()
     (H2, H3, _), _ = predict_step(trained, frames[2], carry, False, **KW)
-    assert trained.prepared
+    # the trained modules' operands were built again, frozen RAFT's were not
+    assert all(m.kw is not kw for m, kw in zip(trainable, stale))
+    assert trained.raft.update_block.kw is raft_kw
     (rH2, rH3, _), _ = predict_step(build_model(sd2, device="cpu", precision="highest"), frames[2], carry, False, **KW)
     (oH2, _, _), _ = predict_step(build_model(sd0, device="cpu", precision="highest"), frames[2], carry, False, **KW)
     torch.testing.assert_close(H2, rH2, rtol=0, atol=0)

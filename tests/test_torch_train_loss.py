@@ -117,8 +117,11 @@ def test_loss_matches_jax_on_identical_outputs(jax_forward, is_wb):
 def test_reinit_enhancer_statistics():
     sd = init_random_state_dict(0)
     model = build_model(sd, device="cpu", precision="highest")
+    kw = {m: m.kw for m in (model.enhance, model.denoise_1)}
     reinit_enhancer(model, torch.Generator().manual_seed(3))
-    assert not model.prepared
+    # the Enhancer's operands are built again at the next prepare, the others kept
+    assert model.enhance.prepare(model.dtype) is not kw[model.enhance]
+    assert model.denoise_1.prepare(model.dtype) is kw[model.denoise_1]
     enh = dict(model.enhance.named_parameters())
     for name, p in enh.items():
         v = p.detach().double()

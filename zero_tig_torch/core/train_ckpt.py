@@ -14,11 +14,12 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 
-from ..pipeline.steps import TrainState
+if TYPE_CHECKING:
+    from ..pipeline.steps import TrainState
 
 
 def _param_names(state: TrainState) -> list[str]:
@@ -55,14 +56,13 @@ def restore_train_state(path: str, template: TrainState) -> tuple[TrainState, di
         for n, mu, nu in zip(_param_names(template), opt.mu, opt.nu):
             mu.copy_(payload["mu"][n])
             nu.copy_(payload["nu"][n])
-        model.prepare()  # the kernels' weight operands (RAFT's among them) from the loaded weights
     opt.count = int(payload["count"])
     carry = {k: v.to(model.device) for k, v in payload["carry"].items()}
     meta: dict[str, Any] = {}
     if os.path.exists(path + ".meta.json"):
         with open(path + ".meta.json") as f:
             meta = json.load(f)
-    return TrainState(model, opt, carry), meta
+    return template._replace(carry=carry), meta
 
 
 def latest_checkpoint(ckpt_dir: str, prefix: str = "state_") -> str | None:

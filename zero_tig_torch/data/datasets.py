@@ -14,12 +14,9 @@ broken ``DefaultDataset`` (multi_read_data.py:29-71).
 Frames decode through the port's own PNG codec (``native``); JPEG frames,
 and the reference's Pillow bicubic resize of a frame that is not at the
 target size (multi_read_data.py:127-132), go through Pillow, which is
-imported only then. ``ZERO_TIG_NATIVE_IO=1`` in the environment puts
-the native C++ frame pipeline (``native.frameio``: libpng and libjpeg,
-OpenCV's bicubic for off-size frames, threads decoding ahead) under
-``iter_u8`` and ``load_image``, as in the JAX package (:84-102, :168-180);
-where it cannot be built, the dataset raises. The JAX package's OpenCV
-opt-in (``ZERO_TIG_CV2_RESIZE``) has no counterpart.
+imported only then. The JAX package's C++ frame pipeline and its OpenCV
+resize opt-in have no counterpart: the codec is the one decode path on
+every machine.
 """
 
 from __future__ import annotations
@@ -33,7 +30,6 @@ from typing import Iterator
 import numpy as np
 
 from .. import native
-from ..native import frameio
 
 
 @dataclass
@@ -82,9 +78,6 @@ class FrameDataset:
         self.paths = paths
         self.size = size  # (W, H)
         self._last_path = paths[0]  # persists across epochs (reference quirk)
-        self.native_io = os.environ.get("ZERO_TIG_NATIVE_IO", "0") == "1"
-        if self.native_io:
-            frameio.library()  # built here: a dataset that cannot read its frames fails at once
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -97,8 +90,6 @@ class FrameDataset:
         return img
 
     def load_image(self, path: str) -> np.ndarray:
-        if self.native_io:
-            return frameio.load_frame(path, *self.size)
         return self.load_image_u8(path).astype(np.float32) / 255.0
 
     def _records(self, images) -> Iterator[FrameRecord]:
@@ -117,18 +108,8 @@ class FrameDataset:
 
     def iter_u8(self) -> Iterator[FrameRecord]:
         """Like ``__iter__``, the images left uint8: the prefetcher ships them
-        so and normalises on the device. With native IO, the C++ pipeline
-        decodes ahead on the host's cores."""
-        if not self.native_io:
-            return self._records(map(self.load_image_u8, self.paths))
-        return self._native_records()
-
-    def _native_records(self) -> Iterator[FrameRecord]:
-        pipe = frameio.NativePipeline(self.paths, *self.size, threads=max(os.cpu_count() or 1, 1), out_u8=True)
-        try:
-            yield from self._records(pipe)
-        finally:
-            pipe.close()
+        so and normalises on the device."""
+        return self._records(map(self.load_image_u8, self.paths))
 
 
 def _check_task(task: str) -> None:

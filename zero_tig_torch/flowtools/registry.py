@@ -72,14 +72,11 @@ def _init(cls) -> Callable[..., nn.Module]:
 
 
 def prepare_raft(model: RAFT, precision: str) -> None:
-    """Prepare the weight operands of RAFT's inference loop (K1 and the GRU
-    kernel take the update core and the mask head) again when the precision
-    changed or a parameter was written since (a training step)."""
-    dtype = compute_dtype(precision)
-    stamp = (dtype, tuple(p._version for p in model.parameters()))
-    if getattr(model, "prepared_stamp", None) != stamp:
-        model.prepare(dtype)
-        model.prepared_stamp = stamp
+    """The weight operands of RAFT's inference loop (K1 and the GRU kernel
+    take the update core and the mask head) in ``precision``'s dtype, built
+    again only where the precision or the update block's weights changed
+    (``RAFT.prepare``)."""
+    model.prepare(compute_dtype(precision))
 
 
 def _raft_forward(model: RAFT, img1, img2, iters: int, precision: str = "highest"):

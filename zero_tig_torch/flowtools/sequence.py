@@ -18,8 +18,9 @@ every frame that has a predecessor in its sequence. For each such pair:
 
 A flagged frame starts a sequence: it gives no flow and resets the warm
 start to zero. Nothing in a chunk copies to the host or waits for the
-device. The weights are prepared as ``registry._raft_forward`` prepares
-them, and the chunk runs under ``numerics(precision)`` without gradients.
+device. The weight operands come from ``registry.prepare_raft``, as
+``registry._raft_forward``'s do, and the chunk runs under
+``numerics(precision)`` without gradients.
 
 Spans: ``zt.flowseq.chunk`` around a call, ``zt.flowseq.pair`` around a pair,
 ``zt.flowseq.warm`` around its forward interpolation (outside the graph),

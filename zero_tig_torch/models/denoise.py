@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_conv import fused_conv, prepare_conv
-from .layers import conv2d
+from .layers import conv2d, kernel_operands
 
 EPS = 1e-4
 
@@ -37,8 +37,11 @@ class Denoise(nn.Module):
         self.conv3 = nn.Conv2d(chan_embed, cout, 1)
         self.kw: dict | None = None
 
-    def prepare(self, dtype: torch.dtype) -> None:
-        self.kw = {n: prepare_conv(getattr(self, n), dtype) for n in ("conv1", "conv2", "conv3")}
+    def prepare(self, dtype: torch.dtype) -> dict:
+        return kernel_operands(self, dtype, self._operands)
+
+    def _operands(self, dtype: torch.dtype) -> dict:
+        return {n: prepare_conv(getattr(self, n), dtype) for n in ("conv1", "conv2", "conv3")}
 
     def forward(self, parts: Sequence[torch.Tensor], anchor: Sequence[torch.Tensor]) -> torch.Tensor:
         """clip(cat(anchor) - Denoise(cat(parts)), 1e-4, 1) on NHWC tensors."""

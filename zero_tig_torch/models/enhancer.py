@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_conv import fused_conv, prepare_conv
-from .layers import EvalBatchNorm2d, batch_norm_train, batch_norm_with, clip, conv2d
+from .layers import EvalBatchNorm2d, batch_norm_train, batch_norm_with, clip, conv2d, kernel_operands
 
 
 class Enhancer(nn.Module):
@@ -32,8 +32,11 @@ class Enhancer(nn.Module):
         self.out_conv = nn.Sequential(nn.Conv2d(channels, 3, 3, padding=1), nn.Sigmoid())
         self.kw: dict | None = None
 
-    def prepare(self, dtype: torch.dtype) -> None:
-        self.kw = {
+    def prepare(self, dtype: torch.dtype) -> dict:
+        return kernel_operands(self, dtype, self._operands)
+
+    def _operands(self, dtype: torch.dtype) -> dict:
+        return {
             "in": prepare_conv(self.in_conv[0], dtype),
             "block": prepare_conv(self.conv[0], dtype, bn=self.conv[1]),
             "out": prepare_conv(self.out_conv[0], dtype),

@@ -1,5 +1,6 @@
 """Layers shared by the port's models: BatchNorm (eval and train),
-InstanceNorm, convs, and the JAX package's clip.
+InstanceNorm, convs, the JAX package's clip, and ``kernel_operands``, the
+one rule for when a module's kernel weight operands are built again.
 
 Port of ``zero_tig_tpu/models/layers.py``. Norm statistics are f32 and
 the result is cast back to the input's dtype, as the JAX package does;
@@ -9,6 +10,8 @@ defaults).
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -143,3 +146,20 @@ def conv2d_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.T
     y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype), bias,
                  conv.stride, conv.padding, conv.dilation)
     return y.permute(0, 2, 3, 1)
+
+
+def kernel_operands(module: nn.Module, dtype: torch.dtype, build: Callable[[torch.dtype], dict]) -> dict:
+    """``module.kw``: the weight operands its kernels read (K1's packed
+    weights, an eval BatchNorm folded into scale and shift), which
+    ``build(dtype)`` makes from the module's own parameters and buffers.
+    They are built again only when their stamp changes: ``dtype``, and each
+    parameter's and buffer's storage address and version counter. An
+    in-place write through the tensor (an optimizer step, ``copy_`` under
+    ``no_grad``, ``load_state_dict``) moves the version, a ``.to()`` that
+    copies moves the address. A write past both (into ``.data``, or a
+    collective into the storage) is not seen: write through the tensor."""
+    stamp = (dtype, tuple((t.data_ptr(), t._version) for t in (*module.parameters(), *module.buffers())))
+    if getattr(module, "kw_stamp", None) != stamp:
+        module.kw = build(dtype)
+        module.kw_stamp = stamp
+    return module.kw

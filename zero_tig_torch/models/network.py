@@ -45,7 +45,6 @@ class ZeroTIG(nn.Module):
         self.denoise_1 = Denoise1(48)
         self.denoise_2 = Denoise2(48)
         self.raft = RAFT()
-        self.prepared = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -56,13 +55,14 @@ class ZeroTIG(nn.Module):
         return self.denoise_1.conv1.weight.device
 
     def prepare(self) -> "ZeroTIG":
-        """Build the kernels' weight operands (after loading and moving).
-        They are snapshots: code that changes the weights afterwards (a
-        training step, ``reinit_enhancer``) sets ``prepared`` to False, and
-        the next inference frame prepares again."""
+        """Bring the kernels' weight operands of the four modules up to date
+        with their weights and the precision: each module builds its own
+        again where its stamp changed (``layers.kernel_operands``), so a
+        writer of weights (a training step, ``load_state_dict``,
+        ``reinit_enhancer``) has nothing to clear. Every inference frame
+        calls it; where nothing changed it builds nothing."""
         for m in (self.enhance, self.denoise_1, self.denoise_2, self.raft):
             m.prepare(self.dtype)
-        self.prepared = True
         return self
 
     def trainable_parameters(self) -> list[nn.Parameter]:
@@ -117,8 +117,7 @@ def forward_inference(
     ``parallel/spmd_predict.py``); Denoise_1, the flow and the warp still
     take the whole frame. At 1/enh_scale the Enhancer takes the whole frame."""
     with spans.span("zt.infer.frame"):
-        if not model.prepared:
-            model.prepare()
+        model.prepare()
         with numerics(model.precision):
             cdt = model.dtype
             with spans.span("zt.infer.denoise_1"):
@@ -325,4 +324,3 @@ def reinit_enhancer(model: ZeroTIG, generator: torch.Generator) -> None:
             continue
         noise = torch.randn(p.shape, generator=generator, device=generator.device)
         p.copy_((1.0 if p.dim() == 1 else 0.0) + 0.02 * noise)
-    model.prepared = False

@@ -69,8 +69,11 @@ class RAFT(nn.Module):
         self.update_block = BasicUpdateBlock(HIDDEN_DIM)
         self._graph: _FlowGraph | None = None
 
-    def prepare(self, dtype: torch.dtype) -> None:
-        self.update_block.prepare(dtype)
+    def prepare(self, dtype: torch.dtype) -> dict:
+        """The inference path's weight operands in ``dtype``: the update
+        block's (``BasicUpdateBlock.prepare``), built again only when its own
+        weights or the dtype changed; the encoders read their parameters."""
+        return self.update_block.prepare(dtype)
 
     def forward(
         self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12, *,
@@ -81,7 +84,7 @@ class RAFT(nn.Module):
         ``return_predictions``, (flow_low, (iters, B, 8h, 8w, 2) flows).
         ``flow_init``: the warm start, (B, h, w, 2) f32 at the 1/8 grid.
         ``dtype``: the training path's working dtype (the inference path
-        takes the one ``prepare`` set)."""
+        takes the one ``prepare`` last set)."""
         with spans.span("zt.raft"):
             if not return_predictions:
                 return self._infer(image1, image2, iters, flow_init)
@@ -132,8 +135,9 @@ class RAFT(nn.Module):
         """What a captured inference pass holds fixed besides the weights'
         addresses: each input's shape, strides, dtype and device (None for
         an absent ``flow_init``), ``iters``, the prepared dtype and operands
-        (``prepare`` builds new ones when weights load or the precision
-        changes) and the two TF32 switches (``core/precision.py::numerics``)."""
+        (``prepare`` builds new ones when the update block's weights or the
+        precision change) and the two TF32 switches
+        (``core/precision.py::numerics``)."""
         ub = self.update_block
         return (
             *(None if t is None else (tuple(t.shape), t.stride(), t.dtype, t.device)
@@ -153,7 +157,9 @@ class RAFT(nn.Module):
         next call overwrites: use them before calling again. While a
         profiler records nothing is captured (its ranges and events would
         become graph nodes): the pass runs eagerly until a capture exists.
-        On the CPU this is ``forward``."""
+        On the CPU this is ``forward``. The operands are brought up to date
+        first, in the dtype ``prepare`` last set."""
+        self.prepare(self.update_block.dtype)
         g = self._graph
         if image1.device.type == "cuda":
             key = self.graph_key(image1, image2, iters, flow_init)

@@ -33,7 +33,7 @@ from torch import nn
 
 from ...ops.fused_conv import ConvWeights, conv_weights, fused_conv, prepare_conv
 from ...ops.gru import gru_reset, gru_update
-from ..layers import conv2d, conv2d_nhwc
+from ..layers import conv2d, conv2d_nhwc, kernel_operands
 
 
 def _cat_out(a: ConvWeights, b: ConvWeights) -> ConvWeights:
@@ -78,11 +78,17 @@ class BasicUpdateBlock(nn.Module):
         self.kw: dict | None = None
         self.dtype = torch.float32
 
-    def prepare(self, dtype: torch.dtype) -> None:
+    def prepare(self, dtype: torch.dtype) -> dict:
+        """The operands of K2 and the mask head in ``dtype``, the working
+        dtype of the inference path from here on."""
+        kw = kernel_operands(self, dtype, self._operands)
+        self.dtype = dtype
+        return kw
+
+    def _operands(self, dtype: torch.dtype) -> dict:
         enc, gru, fh = self.encoder, self.gru, self.flow_head
         p = lambda conv, **kw: prepare_conv(conv, dtype, **kw)  # noqa: E731
-        self.dtype = dtype
-        self.kw = {
+        return {
             "convc1": p(enc.convc1),
             "convc2": p(enc.convc2),
             "conv": p(enc.conv),

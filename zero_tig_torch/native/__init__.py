@@ -1,11 +1,11 @@
 """The port's host image IO: its own PNG codec, and Pillow for the rest.
 
 The JAX package decodes, resizes and writes frames with OpenCV and Pillow
-(``zero_tig_tpu/data/datasets.py:108-136``, ``cli/common.py:139-142``) and
-keeps its C++ frame pipeline in ``zero_tig_tpu/native/frameio.cc``
-(libpng/libjpeg). The machine with the card has neither OpenCV nor Pillow,
-so PNG, the format of every frame the reference datasets hold, has one path
-here on every machine:
+(``zero_tig_tpu/data/datasets.py:108-136``, ``cli/common.py:139-142``), or
+with its C++ frame pipeline (libpng/libjpeg), which has no counterpart
+here. The machine with the card has neither OpenCV nor Pillow, so PNG, the
+format of every frame the reference datasets hold, has one path here on
+every machine:
 
   * decode: the chunks are parsed here, Python's ``zlib`` inflates the IDAT
     stream, and ``pngio.cpp`` (``zt_png_unfilter``) undoes the row filters.
@@ -26,9 +26,7 @@ here on every machine:
 a name keyed by a hash of the source, flags, compiler and the machine's
 boot, so a library built elsewhere is never loaded; a failed build raises. JPEG
 and BMP frames and resizing a frame that is not at the target size go
-through Pillow, imported when one is needed. ``frameio`` holds the port's copy of
-the JAX package's C++ frame pipeline (libpng and libjpeg), which
-``ZERO_TIG_NATIVE_IO=1`` puts under the datasets.
+through Pillow, imported when one is needed.
 """
 
 from __future__ import annotations
@@ -68,36 +66,30 @@ def _boot_id() -> str:
         return os.uname().nodename
 
 
-def compile_shared(source: Path, stem: str, libs: tuple[str, ...] = ()) -> Path:
-    """Compile ``source`` into ``BUILD_DIR/<stem>-<hash>.so``, linked with
-    ``libs``, once per hash of the source, flags, libraries, compiler and
-    boot of the machine. A failed build raises RuntimeError with the
-    compiler's message."""
+def build() -> Path:
+    """Compile ``pngio.cpp`` into ``BUILD_DIR/libzt_pngio-<hash>.so``, once
+    per hash of the source, flags, compiler and boot of the machine. A
+    failed build raises RuntimeError with the compiler's message."""
     cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
     if cxx is None:
-        raise RuntimeError(f"no C++ compiler ($CXX, c++ or g++): {source.name} cannot be built")
-    h = hashlib.sha256(" ".join((cxx, _boot_id()) + CXX_FLAGS + libs).encode())
-    h.update(source.read_bytes())
-    target = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+        raise RuntimeError(f"no C++ compiler ($CXX, c++ or g++): {SOURCE.name} cannot be built")
+    h = hashlib.sha256(" ".join((cxx, _boot_id()) + CXX_FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    target = BUILD_DIR / f"libzt_pngio-{h.hexdigest()[:16]}.so"
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = Path(tmp) / target.name
         try:
-            res = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", str(out), *libs],
+            res = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(out)],
                                  capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:
-            raise RuntimeError(f"building {source.name} with {cxx} failed: {e}") from e
+            raise RuntimeError(f"building {SOURCE.name} with {cxx} failed: {e}") from e
         if res.returncode != 0:
-            raise RuntimeError(f"building {source.name} failed:\n{res.stdout}{res.stderr}")
+            raise RuntimeError(f"building {SOURCE.name} failed:\n{res.stdout}{res.stderr}")
         os.replace(out, target)  # atomic: a reader never sees half a file
     return target
-
-
-def build() -> Path:
-    """Compile ``pngio.cpp`` into a shared library (once per source hash)."""
-    return compile_shared(SOURCE, "libzt_pngio")
 
 
 def library() -> ctypes.CDLL:

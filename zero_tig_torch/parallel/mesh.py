@@ -166,11 +166,14 @@ def _tensors(module: torch.nn.Module) -> list[torch.Tensor]:
 @torch.no_grad()
 def shard_params(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
     """Replicate ``module``'s parameters and buffers from rank 0 to every
-    rank, in place (JAX's ``shard_params``: a replicated device_put)."""
+    rank, in place (JAX's ``shard_params``: a replicated device_put). Each
+    arrives in a buffer and is copied into the tensor itself: the copy
+    moves the tensor's version counter, which the stamp of the kernels'
+    weight operands reads (a collective into ``.data`` would not)."""
     for t in _tensors(module):
-        broadcast_(mesh, t.data, 0, mesh.world)
-    if hasattr(module, "prepared"):
-        module.prepared = False  # the kernels' weight snapshots are stale
+        buf = _staged(mesh, t).clone()
+        dist.broadcast(buf, src=0, group=mesh.world)
+        t.copy_(buf)
     return module
 
 

@@ -101,7 +101,6 @@ def train_steps(mesh: Mesh, config: Config, state_dict: dict, frames, carry: dic
         grads = {names[id(p)]: p.grad.cpu() for p in state.optimizer.params}
         with numerics(config.precision):
             state.optimizer.step()
-        state.model.prepared = False
         state = state._replace(carry=new_carry)
         trained = {n: v.detach().cpu().clone() for n, v in state.model.state_dict().items()
                    if not n.startswith("raft.") and not n.endswith("num_batches_tracked")}

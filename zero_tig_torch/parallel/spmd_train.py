@@ -153,7 +153,6 @@ def train_step_spmd(
     )
     with numerics(state.model.precision):
         state.optimizer.step()
-    state.model.prepared = False  # the kernels' weight operands are stale now
     return TrainState(state.model, state.optimizer, carry), loss
 
 

@@ -303,5 +303,4 @@ def train_step_spatial(
     )
     with numerics(state.model.precision):
         state.optimizer.step()
-    state.model.prepared = False  # the kernels' weight operands are stale now
     return TrainState(state.model, state.optimizer, carry), loss

@@ -198,7 +198,6 @@ def train_step(
             with spans.span("zt.train.backward"):
                 loss.backward()
             state.optimizer.step()
-        model.prepared = False  # the kernels' weight operands are stale now
         return TrainState(model, state.optimizer, carry), loss.detach()
 
 
