@@ -21,7 +21,12 @@ zero_tig_torch/csrc from the checkout, then:
      (equalize_u8; equalize01 on f32 and on bf16) exactly, at 360x640x3 on
      a uniform image with a constant channel, a low-light and an all-equal
      one, and on a ragged batch of 2, 5 channels and 64 images of 540x960;
-     conv3x3_bf16 at 1080p, 64->64 and 48->48, with bf16 and f32 outputs);
+     conv3x3_bf16 at 1080p, 64->64 and 48->48, with bf16 and f32 outputs;
+     RAFT's correlation lookup kernel at 45x80 and 55x128, f32 levels to
+     f32 windows and bf16 to bf16, radius 4, with centres on integers,
+     half-pixels and far outside, two launches bit-equal, and its time in a
+     CUDA graph with the L2 cache warm and flushed beside its bound, its
+     twin and F.grid_sample);
   3. drives the main path: predict_chunk(emit="u8") over 8 frames of
      1920x1080, of_scale=3, 12 RAFT iterations, fast mode, new sequences at
      frames 0 and 4, on seeded random weights; checks the outputs are finite
@@ -121,7 +126,7 @@ zero_tig_torch/csrc from the checkout, then:
      (a) benchmark_model of lk_pyramid, pwc_lite, raft and raft_small at
      500x1000 in both precisions (median ms, parameters, FLOPs, peak
      bytes); (b) RAFT's launches on one Sintel pair through infer_pair,
-     counted from 0 (12 x (9 K1 + 4 GRU) + 2 K1), and each model on the
+     counted from 0 (12 x (9 K1 + 4 GRU + 1 lookup) + 2 K1), and each model on the
      card against its plain version on the CPU on that pair in highest
      mode; (c) validate_folder (RAFT, PWC-lite card against CPU, LK against
      the known flow) and the Sintel and KITTI submissions read back against
@@ -187,7 +192,9 @@ from zero_tig_torch.kernels import build
 from zero_tig_torch.losses.zero_tig_loss import zero_tig_loss
 from zero_tig_torch.models import build_model, init_random_state_dict, init_state_dict
 from zero_tig_torch.models.network import forward_train, reinit_enhancer
+from zero_tig_torch.models.raft.corr import build_corr_pyramid, lookup_corr, lookup_corr_reference
 from zero_tig_torch.models.raft.update import update_core
+from zero_tig_torch.ops.sampling import coords_grid
 from zero_tig_torch.ops import gru
 from zero_tig_torch.ops.conv3x3 import conv3x3_bf16, conv3x3_bf16_reference
 from zero_tig_torch.ops.equalize import equalize01, equalize01_reference, equalize_u8, equalize_u8_reference
@@ -264,6 +271,7 @@ REPLACES = {
     "gru": "zero_tig_tpu/models/raft/update_kernel.py:248 (update_core_kernel GRU gates)",
     "equalize_u8": "zero_tig_tpu/ops/pallas_equalize.py:112 (equalize_uint8_pallas)",
     "conv3x3_bf16": "zero_tig_tpu/ops/pallas_conv.py:125 (conv3x3_bf16)",
+    "corr_lookup": "zero_tig_tpu/models/raft/corr.py (lookup_corr, hat-weight matmuls; no Pallas kernel)",
 }
 # the kernels of csrc/*.cu by exact name, and the wrapper that launches each
 OWN_KERNELS = {
@@ -272,6 +280,7 @@ OWN_KERNELS = {
     "zt::gru_reset_kernel": "gru",
     "zt::gru_update_kernel": "gru",
     "zt::equalize_kernel": "equalize_u8",  # both K3 entries: equalize_u8 and equalize01
+    "zt::corr_lookup_kernel": "corr_lookup",
 }
 SOURCES = {
     "fused_conv": "zero_tig_torch/csrc/fused_conv_mma.cu",
@@ -279,16 +288,17 @@ SOURCES = {
     "gru": "zero_tig_torch/csrc/gru.cu",
     "equalize_u8": "zero_tig_torch/csrc/equalize.cu",
     "conv3x3_bf16": "zero_tig_torch/csrc/fused_conv_mma.cu",
+    "corr_lookup": "zero_tig_torch/csrc/corr_lookup.cu",
 }
 MMA, FMA = "zt::fused_conv_mma_kernel", "zt::fused_conv_kernel"
-KERNELS = ("fused_conv", "fused_conv_f32", "gru", "equalize_u8", "conv3x3_bf16")
+KERNELS = ("fused_conv", "fused_conv_f32", "gru", "equalize_u8", "conv3x3_bf16", "corr_lookup")
 
 
-def launches(k1: int = 0, gru: int = 0, eq: int = 0, c3: int = 0, *, f32: bool = False) -> dict:
+def launches(k1: int = 0, gru: int = 0, eq: int = 0, c3: int = 0, corr: int = 0, *, f32: bool = False) -> dict:
     """The launch counts a path must show: K1's under fused_conv_f32 where
     its operands are f32 (highest mode), under fused_conv where bf16."""
     return {"fused_conv": 0 if f32 else k1, "fused_conv_f32": k1 if f32 else 0, "gru": gru, "equalize_u8": eq,
-            "conv3x3_bf16": c3}
+            "conv3x3_bf16": c3, "corr_lookup": corr}
 
 
 def wrapper_launches(graphs: dict, frames: int, train_frames: int = 0, *, f32: bool = False) -> dict:
@@ -304,7 +314,7 @@ def wrapper_launches(graphs: dict, frames: int, train_frames: int = 0, *, f32: b
     if captures + graphs["raft_graph_replay"] != calls:
         fail(f"RAFT's graph captured and replayed {graphs} for {calls} frames")
     return launches((K1_PER_FRAME - K1_PER_RAFT) * frames + K1_PER_RAFT * 2 * captures, GRU_PER_FRAME * 2 * captures,
-                    EQ_PER_FRAME * calls, f32=f32)
+                    EQ_PER_FRAME * calls, corr=ITERS * 2 * captures, f32=f32)
 
 
 def fail(msg: str) -> None:
@@ -451,6 +461,7 @@ def phase2_kernels(fast, highest, gen, report):
         x = {k: torch.randn(1, HR, WR, c, generator=gen, device="cuda")
              for k, c in (("net", 128), ("inp", 128), ("corr", 324), ("flow", 2))}
         x["net"], x["inp"] = torch.tanh(x["net"]).to(dt), torch.relu(x["inp"]).to(dt)
+        x["corr"] = x["corr"].to(dt)  # as lookup_corr writes it
         x["flow"] = 3 * x["flow"]
         flo = ub.flow_features(x["flow"])
         net, delta = update_core(ub.kw, x["net"], x["inp"], x["corr"], flo, x["flow"])
@@ -520,6 +531,96 @@ def phase2_kernels(fast, highest, gen, report):
     c3_bf16 = max(v for k, v in c3.items() if k.endswith("bfloat16"))
     return {"fused_conv": k1_bf16, "fused_conv_f32": k1_f32, "gru": gru_err, "equalize_u8": float(eq_err),
             "conv3x3_bf16": c3_bf16}
+
+
+CORR_GRIDS = ((HR, WR), (55, 128))  # the streams' RAFT grid and Sintel's (1024x440 / 8)
+
+
+def corr_case(grid, dtype, seed):
+    """A 4-level pyramid at ``grid`` in ``dtype`` from seeded 256-channel
+    features, and centres a few pixels off the grid, with integers,
+    half-pixels and far-off points among them."""
+    h, w = grid
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f1, f2 = (torch.randn(1, h, w, 256, generator=g, device="cuda") for _ in range(2))
+    levels = build_corr_pyramid(f1, f2, 4, dtype)
+    c = coords_grid(1, h, w, device="cuda") + 3 * torch.randn(1, h, w, 2, generator=g, device="cuda")
+    k = torch.arange(h * w, device="cuda").reshape(1, h, w)
+    c[k % 5 == 0] = c[k % 5 == 0].round()
+    c[k % 5 == 1] = c[k % 5 == 1].floor() + 0.5
+    c[k % 13 == 3] = torch.tensor([1e4, -3e4], device="cuda")
+    return levels, c.contiguous()
+
+
+def grid_sample_windows(levels, coords, radius: int):
+    """The lookup's windows by F.grid_sample (align_corners, zeros outside),
+    the one PyTorch call that computes them: a yardstick of speed, never
+    called by the port. Needs every level at least 2 wide and high."""
+    b, h1, w1, _ = coords.shape
+    q, n = b * h1 * w1, 2 * radius + 1
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32, device=coords.device)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)  # [a, b] -> (a - r, b - r), the window transpose
+    out = []
+    for i, level in enumerate(levels):
+        h2, w2 = level.shape[-2:]
+        pts = coords.reshape(q, 1, 1, 2) / 2**i + delta
+        pts = torch.stack([pts[..., 0] * (2 / (w2 - 1)) - 1, pts[..., 1] * (2 / (h2 - 1)) - 1], -1)
+        s = F.grid_sample(level.float(), pts, mode="bilinear", padding_mode="zeros", align_corners=True)
+        out.append(s.reshape(b, h1, w1, n * n))
+    return torch.cat(out, -1)
+
+
+def phase2_corr_lookup(report) -> tuple[float, dict]:
+    """RAFT's correlation lookup kernel against its twin at the streams' and
+    Sintel's grids, radius 4: f32 levels to f32 windows (highest mode),
+    bf16 levels to bf16 windows (fast mode), each also to f32 (within 1e-5
+    + 1e-5 max|ref|: the twin's products summed in another order), bf16
+    windows the f32 ones rounded once, two launches bit-equal. Then timed
+    in a CUDA graph, with the L2 cache warm (back-to-back lookups) and
+    flushed (a 64 MB write after each, its own time taken off), beside its
+    bound (the windows' patches, coordinates and output once, at 3.35 TB/s),
+    the twin and F.grid_sample. Returns the largest f32 error and a fast
+    frame's timings at 45x80 (ITERS lookups)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # more than the 50 MB L2
+    flush_ms = graph_ms(flush.zero_)
+    rows, worst, frame = [], 0.0, None
+    for grid in CORR_GRIDS:
+        for dt in (torch.float32, torch.bfloat16):
+            levels, coords = corr_case(grid, dt, SEED + grid[1])
+            ref = lookup_corr_reference(levels, coords, 4)
+            got = lookup_corr(levels, coords, 4, dt)
+            again = lookup_corr(levels, coords, 4, dt)
+            f32 = lookup_corr(levels, coords, 4)
+            torch.cuda.synchronize()
+            tol = 1e-5 + 1e-5 * float(ref.abs().max())
+            err = float((f32 - ref).abs().max())
+            ok = (err <= tol and torch.equal(got, again) and torch.equal(got, f32.to(dt))
+                  and bool(torch.isfinite(got).all()))
+            label = f"corr_lookup {grid[0]}x{grid[1]} {str(dt).removeprefix('torch.')}"
+            print(f"{label} levels -> windows max_abs_err={err:.3e} (f32 windows) tol={tol:.3e}, bf16 windows the "
+                  f"f32 ones rounded once, two launches bit-equal {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{label} disagrees with its twin")
+            worst = max(worst, err)
+            q = grid[0] * grid[1]
+            nbytes = q * 2 * 4 + got.numel() * got.element_size() + sum(
+                q * min(10, lv.shape[-2]) * min(10, lv.shape[-1]) * lv.element_size() for lv in levels)
+            row = {"grid": f"{grid[0]}x{grid[1]}", "levels": str(dt), "max_abs_err": err,
+                   "ms": graph_ms(lambda: lookup_corr(levels, coords, 4, dt)),
+                   "cold_ms": graph_ms(lambda: (lookup_corr(levels, coords, 4, dt), flush.zero_())) - flush_ms,
+                   "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+                   "plain_ms": graph_ms(lambda: lookup_corr_reference(levels, coords, 4).to(dt)),
+                   "library_ms": graph_ms(lambda: grid_sample_windows(levels, coords, 4).to(dt))}
+            rows.append(row)
+            print(f"time {label} a lookup: ms={row['ms']:.4f} (L2 flushed {row['cold_ms']:.4f}) "
+                  f"bound_ms={row['bound_ms']:.4f} (bytes: {nbytes / 1e6:.2f} MB) plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms={row['library_ms']:.4f} (F.grid_sample), CUDA-graph device time", flush=True)
+            if grid == (HR, WR) and dt == torch.bfloat16:
+                frame = {k: row[k] * ITERS for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                frame["bound_by"] = "bytes"
+            del levels, ref
+    report["corr_lookup"] = rows
+    return worst, frame
 
 
 def k3_cases(gen):
@@ -825,12 +926,15 @@ def trace_path(run, frames: int, label: str, k1_per_frame: dict) -> dict:
         fail(f"the trace holds no device kernel named {missing}")
     k1_seen = {k: round(by_name.get(k, [0.0, 0.0])[1], 6) for k in k1_per_frame}
     gru_seen = round(sum(n for k, (_, n) in by_name.items() if OWN_KERNELS.get(k) == "gru"), 6)
+    corr_seen = round(by_name["zt::corr_lookup_kernel"][1], 6)
     print(f"{label} trace K1 kernels per frame: {k1_seen} (expected {k1_per_frame}); GRU kernels per frame "
-          f"{gru_seen} (expected {GRU_PER_FRAME})", flush=True)
+          f"{gru_seen} (expected {GRU_PER_FRAME}); lookups per frame {corr_seen} (expected {ITERS})", flush=True)
     if k1_seen != {k: float(v) for k, v in k1_per_frame.items()}:
         fail(f"{label}: K1 ran on the wrong kernel")
     if gru_seen != GRU_PER_FRAME:
         fail(f"{label}: the device ran {gru_seen} GRU kernels a frame")
+    if corr_seen != ITERS:
+        fail(f"{label}: the device ran {corr_seen} lookup kernels a frame")
     own = [(k, v) for k, v in rows if k in OWN_KERNELS]
     other = [(k, v) for k, v in rows if k not in OWN_KERNELS]
     print(f"{label} trace of {frames} frames: device busy {busy / 1e3 / frames:.3f} of a {window / 1e3 / frames:.3f} "
@@ -983,7 +1087,7 @@ def phase5_timings(fast, highest, gen, report):
     dt = ub.dtype
     net = torch.tanh(torch.randn(1, HR, WR, 128, generator=gen, device="cuda")).to(dt)
     inp = torch.relu(torch.randn(1, HR, WR, 128, generator=gen, device="cuda")).to(dt)
-    corr = torch.randn(1, HR, WR, 324, generator=gen, device="cuda")
+    corr = torch.randn(1, HR, WR, 324, generator=gen, device="cuda").to(dt)
     flow = 3 * torch.randn(1, HR, WR, 2, generator=gen, device="cuda")
     flo = ub.flow_features(flow)
     iter_ms = cuda_ms(lambda: update_core(ub.kw, net, inp, corr, flo, flow))
@@ -2129,12 +2233,12 @@ def phase12_flow_sidecar(report, smi, gen) -> dict:
         pair = infer_pair("raft", raft, str(frames[0]), str(frames[1]), gt_flow_path=str(gts[0]), device="cuda")
         torch.cuda.synchronize()
         side = dict(spans.COUNTS)
-        want = launches(K1_PER_PAIR, GRU_PER_PAIR, f32=True)
+        want = launches(K1_PER_PAIR, GRU_PER_PAIR, corr=ITERS, f32=True)
         print(f"phase 12 counted path: infer_pair('raft') on one 436x1024 pair launches {side} "
               f"(expected {want}; RAFT graph {spans.GRAPHS}, eager: none); its EPE against the fixture's flow "
               f"{pair['epe']:.3f} (random weights)", flush=True)
         if side != want or any(spans.GRAPHS.values()):
-            fail("the sidecar's RAFT pair launched other counts than 12 x (9 + 4) + 2, or touched a graph")
+            fail("the sidecar's RAFT pair launched other counts than 12 x (9 + 4 + 1 lookup) + 2, or touched a graph")
         out["launches_per_pair"] = side
         cmp = {}
         for name in FLOW_MODELS:
@@ -2312,11 +2416,13 @@ def main() -> int:
 
     with precision.numerics("highest"):  # f32 twins hold f32 sums, not TF32
         errs = phase2_kernels(fast, highest, gen, report)
+        errs["corr_lookup"], corr_times = phase2_corr_lookup(report)
     # the main path and the timings run with PyTorch's default switches, as
     # a user's fast-mode model does
     counts, counts32 = phase3_main_path(fast, highest, gen, report, smi)
     phase4_card_vs_cpu(sd, gen, report)
     times = phase5_timings(fast, highest, gen, report)
+    times["corr_lookup"] = corr_times
     counts["conv3x3_bf16"] = phase6_conv3x3_path(gen, report)
     del fast, highest
     phase7_training(sd, report, smi)

@@ -41,6 +41,8 @@ SIGNATURES = {
     "zt_gru_reset": [_P, _P, _P, _I, _I, _I, _I, _P],
     "zt_gru_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "zt_equalize": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # coords, 4 level pointers, 4 (h, w), levels, radius, queries, level_bf16, out_bf16, out, stream
+    "zt_corr_lookup": [_P] * 5 + [_I] * 8 + [_I] * 5 + [_P, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -8,6 +8,13 @@ side reaches 0 stays empty and reads as zeros). The lookup samples a
 window-transpose quirk is kept: window position (i, j) samples
 (x + L[i], y + L[j]), so channel i*(2r+1)+j -- the layout RAFT's weights
 expect.
+
+``lookup_corr`` is the inference path's lookup: for CUDA tensors one launch
+of ``csrc/corr_lookup.cu`` (a bilinear gather of each window's patch; it
+has no backward), counted in ``core/spans.py::COUNTS["corr_lookup"]``; for
+CPU tensors its plain twin ``lookup_corr_reference``, the JAX package's
+hat-weight form. The differentiable paths (``RAFT.forward``'s training
+pass, small RAFT) call the twin by name.
 """
 
 from __future__ import annotations
@@ -16,6 +23,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ...core import spans
+from ...kernels import build
+
+MAX_LEVELS = 4
+MAX_RADIUS = 4
 
 
 def build_corr_pyramid(
@@ -39,7 +52,7 @@ def build_corr_pyramid(
     return levels
 
 
-def lookup_corr(levels: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+def lookup_corr_reference(levels: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
     """Windows around coords (B, H1, W1, 2) (pixel x, y at 1/8 resolution)
     -> (B, H1, W1, levels*(2r+1)^2) f32, level-major.
 
@@ -68,3 +81,54 @@ def lookup_corr(levels: list[torch.Tensor], coords: torch.Tensor, radius: int) -
         s = torch.bmm(wy, t)  # (q, n_y, n_x)
         out.append(s.transpose(1, 2).reshape(b, h1, w1, n * n))
     return torch.cat(out, dim=-1)
+
+
+def _check(levels: list[torch.Tensor], coords: torch.Tensor, radius: int, out_dtype: torch.dtype) -> None:
+    """Raise on what the kernel does not take."""
+    if isinstance(radius, bool) or not isinstance(radius, int) or not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius must be an int in 1..{MAX_RADIUS}, not {radius!r}")
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} levels, not {len(levels)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the windows are f32 or bf16, not {out_dtype}")
+    if coords.dim() != 4 or coords.shape[-1] != 2 or coords.dtype != torch.float32 or not coords.is_contiguous():
+        raise ValueError(f"coords must be contiguous (B, H, W, 2) f32, not {tuple(coords.shape)} {coords.dtype}")
+    q = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    dt = levels[0].dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"levels must be f32 or bf16, not {dt}")
+    for i, level in enumerate(levels):
+        if level.dim() != 4 or level.shape[:2] != (q, 1) or level.dtype != dt:
+            raise ValueError(f"level {i} must be ({q}, 1, h, w) {dt}, not {tuple(level.shape)} {level.dtype}")
+        if level.device != coords.device or not level.is_contiguous():
+            raise ValueError(f"level {i} must be contiguous on the device of coords")
+        if level.requires_grad:
+            raise ValueError(f"level {i} requires grad: the lookup kernel has no backward "
+                             "(the differentiable paths call lookup_corr_reference)")
+
+
+def lookup_corr(
+    levels: list[torch.Tensor], coords: torch.Tensor, radius: int, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """``lookup_corr_reference``'s windows, rounded once to ``out_dtype``
+    (the working dtype of the conv that reads them): (B, H1, W1,
+    levels*(2r+1)^2), contiguous. Levels are read in their own dtype (f32 or
+    bf16), the sums are f32. The kernel for CUDA tensors, the twin for CPU
+    tensors."""
+    _check(levels, coords, radius, out_dtype)
+    if coords.device.type == "cpu":
+        return lookup_corr_reference(levels, coords, radius).to(out_dtype)
+    b, h1, w1, _ = coords.shape
+    n = 2 * radius + 1
+    out = torch.empty(b, h1, w1, len(levels) * n * n, dtype=out_dtype, device=coords.device)
+    pad = MAX_LEVELS - len(levels)
+    ptrs = [lv.data_ptr() for lv in levels] + [None] * pad
+    sides = [(lv.shape[-2], lv.shape[-1]) for lv in levels] + [(0, 0)] * pad
+    code = build.library().zt_corr_lookup(
+        coords.data_ptr(), *ptrs, *(d for hw in sides for d in hw), len(levels), radius, b * h1 * w1,
+        int(levels[0].dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), out.data_ptr(),
+        build.stream_handle(coords.device),
+    )
+    build.check(code, "corr_lookup")
+    spans.COUNTS["corr_lookup"] += 1
+    return out

@@ -11,7 +11,8 @@ reference never unpads; the warp absorbs the padded shape).
 ``return_predictions=True`` is the training path (JAX :75-166): every
 iteration's convex-upsampled flow, differentiable, on the plain modules
 (``BasicUpdateBlock.forward``: library convolutions, no K1 and no GRU
-kernel), ``coords1`` detached at the top of each iteration and the mask head
+kernel) and the lookup's plain twin (the lookup kernel has no backward),
+``coords1`` detached at the top of each iteration and the mask head
 run each iteration. The cnet's BatchNorm stays on its running statistics.
 
 ``flow_init`` (B, h, w, 2) f32 at the 1/8 grid is the warm start of the
@@ -39,7 +40,7 @@ from torch import nn
 from ...core import spans
 from ...ops.padding import pad8_replicate
 from ...ops.sampling import coords_grid
-from .corr import build_corr_pyramid, lookup_corr
+from .corr import build_corr_pyramid, lookup_corr, lookup_corr_reference
 from .encoder import BasicEncoder
 from .update import BasicUpdateBlock, update_core
 
@@ -95,7 +96,7 @@ class RAFT(nn.Module):
             ups = []
             for _ in range(iters):
                 coords1 = coords1.detach()
-                corr = lookup_corr(levels, coords1, CORR_RADIUS)
+                corr = lookup_corr_reference(levels, coords1, CORR_RADIUS)  # differentiable
                 net, mask, delta = ub(net, inp, corr, coords1 - coords0, dtype)
                 coords1 = coords1 + delta.float()
                 ups.append(convex_upsample_flow(coords1 - coords0, mask))
@@ -118,12 +119,13 @@ class RAFT(nn.Module):
 
     def _infer(self, image1: torch.Tensor, image2: torch.Tensor, iters: int,
                flow_init: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-        """The inference path: K2 on the operands ``prepare`` built."""
+        """The inference path: K2 on the operands ``prepare`` built, each
+        iteration's windows from the lookup kernel in the working dtype."""
         ub = self.update_block
         levels, net, inp, coords0 = self._encode(image1, image2, ub.dtype)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         for _ in range(iters):
-            corr = lookup_corr(levels, coords1, CORR_RADIUS)
+            corr = lookup_corr(levels, coords1, CORR_RADIUS, ub.dtype)
             flow = coords1 - coords0
             net, delta = update_core(ub.kw, net, inp, corr, ub.flow_features(flow), flow)
             coords1 = coords1 + delta
@@ -224,8 +226,10 @@ class _FlowGraph:
         for t in flows:
             t.record_stream(main)
         graph = torch.cuda.CUDAGraph()
-        # plain tensors even inside inference mode: a training step copies into them too
-        with torch.inference_mode(False):
+        # plain tensors even inside inference mode (a training step copies into
+        # them too), and no autograd record (inference_mode(False) turns grad
+        # mode on; the lookup kernel refuses levels that require grad)
+        with torch.inference_mode(False), torch.no_grad():
             inputs = tuple(t.clone() for t in (image1, image2, flow_init) if t is not None)
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 outputs = raft._infer(*inputs[:2], iters, *inputs[2:])

@@ -14,7 +14,7 @@ runs on library convolutions (``F.conv2d``), differentiable, in either
 precision: conv operands in the working dtype (bf16 in fast mode), f32
 sums; the dtypes follow JAX's promotions (the flow and the concatenations
 holding it f32). The correlation pyramid and lookup are RAFT's
-(``corr.py``). Parameter names are the reference's (``fnet.layer1.0.conv1``,
+(``corr.py``), the lookup its differentiable twin. Parameter names are the reference's (``fnet.layer1.0.conv1``,
 ``update_block.gru.convz``, ...).
 """
 
@@ -27,7 +27,7 @@ from ...ops.padding import pad8_replicate
 from ...ops.resize import upflow8
 from ...ops.sampling import coords_grid
 from ..layers import conv2d_nhwc, instance_norm
-from .corr import build_corr_pyramid, lookup_corr
+from .corr import build_corr_pyramid, lookup_corr_reference
 from .update import FlowHead
 
 CORR_LEVELS = 4
@@ -173,7 +173,7 @@ class RAFTSmall(nn.Module):
         ys = []
         for _ in range(iters):
             coords1 = coords1.detach()
-            corr = lookup_corr(levels, coords1, CORR_RADIUS)
+            corr = lookup_corr_reference(levels, coords1, CORR_RADIUS)  # differentiable
             net, delta = self.update_block(net, inp, corr, coords1 - coords0, dtype)
             coords1 = coords1 + delta.float()
             if return_predictions:

@@ -153,11 +153,12 @@ def update_core(
     """One refinement iteration (see the module docstring).
 
     net, inp: (B, h, w, 128); corr: (B, h, w, 324); flo: (B, h, w, 64),
-    all in the working dtype of ``kw``; flow: (B, h, w, 2) f32.
+    all contiguous in the working dtype of ``kw`` (``lookup_corr`` writes
+    corr in it); flow: (B, h, w, 2) f32.
     Returns (net' in the working dtype, delta f32)."""
     dt = kw["convc1"].w.dtype
     f32 = torch.float32
-    cor = fused_conv([corr.to(dt).contiguous()], kw["convc1"], act="relu")
+    cor = fused_conv([corr], kw["convc1"], act="relu")
     cor = fused_conv([cor], kw["convc2"], act="relu")
     mot = fused_conv([cor, flo], kw["conv"], act="relu")
     x = [inp, mot, flow.to(dt).contiguous()]
