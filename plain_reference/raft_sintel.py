@@ -164,13 +164,21 @@ class RAFTReference:
 
     def update(self, net, inp, corr, flow):
         """BasicUpdateBlock: the motion encoder, the separable ConvGRU and the flow head."""
+        return self.recurrent(net, torch.cat([inp, self.motion(corr, flow)], 1))
+
+    def motion(self, corr, flow):
+        """BasicMotionEncoder: (B, 128, h, w), its 126 channels and the flow."""
         pre = "update_block"
         cor = torch.relu(self.conv(corr, f"{pre}.encoder.convc1"))
         cor = torch.relu(self.conv(cor, f"{pre}.encoder.convc2", padding=1))
         flo = torch.relu(self.conv(flow, f"{pre}.encoder.convf1", padding=3))
         flo = torch.relu(self.conv(flo, f"{pre}.encoder.convf2", padding=1))
         out = torch.relu(self.conv(torch.cat([cor, flo], 1), f"{pre}.encoder.conv", padding=1))
-        x = torch.cat([inp, out, flow], 1)
+        return torch.cat([out, flow], 1)
+
+    def recurrent(self, net, x):
+        """SepConvGRU on ``net`` and its input ``x``, then the flow head: (net', delta)."""
+        pre = "update_block"
         h = net
         for n, pad in (("1", (0, 2)), ("2", (2, 0))):
             hx = torch.cat([h, x], 1)

@@ -88,8 +88,10 @@ def jax_highest():
 
 
 def test_registry_and_vmaf_match_jax():
-    assert tft.available_models() == jft.available_models() == ["lk_pyramid", "pwc_lite", "raft", "raft_small"]
-    for name in tft.available_models():
+    # the port registers GMA besides the JAX package's four (models/raft/gma.py)
+    assert jft.available_models() == ["lk_pyramid", "pwc_lite", "raft", "raft_small"]
+    assert tft.available_models() == ["gma", *jft.available_models()]
+    for name in jft.available_models():
         ours, theirs = tft.get_flow_model(name), jft.get_flow_model(name)
         assert ours.default_iters == theirs.default_iters, name
         assert (ours.predictions_fn is None) == (theirs.predictions_fn is None), name

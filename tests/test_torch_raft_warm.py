@@ -1,6 +1,7 @@
 """RAFT's warm start (``flow_init``), the device forward interpolation
 (``ops/splat.py``) and the sequence entry (``flowtools/sequence.py``), against
-the plain reference ``plain_reference/raft_sintel.py`` and scipy.
+the plain reference ``plain_reference/raft_sintel.py`` and scipy; GMA's
+warm-started submission beside RAFT's.
 
 On the CPU at a tiny size: 122x132 frames, padded to 128x136 (a 16x17 grid,
 so that every correlation level is at least 2 wide, as the reference's
@@ -19,7 +20,7 @@ from plain_reference.raft_sintel import forward_interpolate as ref_splat
 from zero_tig_torch import native
 from zero_tig_torch.core import spans
 from zero_tig_torch.core.precision import numerics
-from zero_tig_torch.flowtools import get_flow_model, write_sintel_submission
+from zero_tig_torch.flowtools import get_flow_model, submit, write_sintel_submission
 from zero_tig_torch.flowtools.registry import prepare_raft
 from zero_tig_torch.flowtools.sequence import flow_chunk
 from zero_tig_torch.models.raft.corr import lookup_corr
@@ -122,18 +123,34 @@ def test_flow_chunk_agrees_with_the_reference_sequence(raft):
     assert (flows[2] - cold[1][0].permute(0, 2, 3, 1)).abs().max() > 100 * ATOL  # the warm start shows
 
 
-def test_warm_sintel_submission_equals_flow_chunk(raft, tmp_path):
+def test_warm_sintel_submission_equals_flow_chunk(raft, tmp_path, monkeypatch):
+    """RAFT's and GMA's warm-started submissions write ``flow_chunk``'s flows;
+    without ``iters`` they ask it for the published 32 iterations."""
     frames = _frames(5, 3)
     scene = tmp_path / "frames" / "alley_1"
     scene.mkdir(parents=True)
     for k in range(3):
         native.write_png(str(scene / f"frame_{k + 1:04d}.png"), frames[k, 0].numpy())
-    assert write_sintel_submission("raft", raft, str(tmp_path / "frames"), str(tmp_path / "out"), iters=IT,
-                                   device="cpu", warm_start=True) == 2
-    (want, _), _ = flow_chunk(raft, frames, {}, [True, False, False], IT)
-    for k in range(2):
-        np.testing.assert_array_equal(read_flo(str(tmp_path / "out" / "alley_1" / f"frame_{k + 1:04d}.flo")),
-                                      want[k, 0].numpy())
+    gma = get_flow_model("gma").init_fn(3, device="cpu")
+    with torch.no_grad():
+        gma.update_block.aggregator.gamma.fill_(0.5)
+    for name, model in (("raft", raft), ("gma", gma)):
+        assert write_sintel_submission(name, model, str(tmp_path / "frames"), str(tmp_path / name), iters=IT,
+                                       device="cpu", warm_start=True) == 2
+        (want, _), _ = flow_chunk(model, frames, {}, [True, False, False], IT)
+        for k in range(2):
+            np.testing.assert_array_equal(read_flo(str(tmp_path / name / "alley_1" / f"frame_{k + 1:04d}.flo")),
+                                          want[k, 0].numpy())
+        asked = []
+
+        def spy(model, frames, carry, flags, iters, precision):
+            asked.append(iters)  # the pass itself at IT: only the number asked for is checked
+            return flow_chunk(model, frames, carry, flags, IT, precision)
+        monkeypatch.setattr(submit, "flow_chunk", spy)
+        write_sintel_submission(name, model, str(tmp_path / "frames"), str(tmp_path / name), device="cpu",
+                                warm_start=True)
+        monkeypatch.undo()
+        assert asked == [32], name
     with pytest.raises(ValueError, match="flow_init"):
         write_sintel_submission("pwc_lite", raft, str(tmp_path / "frames"), str(tmp_path / "out"), warm_start=True)
 

@@ -21,13 +21,29 @@ device ms (the device-clock interval between its two events: the layer's
 device time where the device is the bottleneck, how long the layer held
 the stream where the host is).
 
+Spans inside a CUDA graph. ``graph_span(name)`` is ``span(name)``, except
+while a graph is captured under ``capturing()``: there it records a pair
+of timing events into the graph (``torch.cuda.Event(enable_timing=True,
+external=True)``, two event-record nodes) and adds (name, start, end) to
+the capture's list, whether or not a profiler records. The graph's owner
+keeps that list and, around each replay made while a profiler records,
+calls ``before_replay()`` and then ``replayed(list)``: each captured span
+appends one record, a child of the innermost open span, with no host clock
+(host ms None) and the device ms between its two events in that replay.
+The events hold one replay's times, so the records of a replay are read
+before the next replay (which waits for the last of its events) or in
+``records()``. Graph spans run only in GMA's pass
+(``models/raft/gma.py``): RAFT's graph has no such nodes.
+
 Counters. ``COUNTS`` holds the launches of each kernel wrapper since
 ``reset_counts()``, always on: a wrapper adds one where it calls into the
 kernel library, and nowhere else. K1's wrapper counts its two kernels
 apart: ``fused_conv`` the tensor-core kernel (bf16 operands),
 ``fused_conv_f32`` the FMA kernel (f32 operands). ``corr_lookup`` counts
 RAFT's correlation lookups on the card (``models/raft/corr.py::lookup_corr``,
-one an iteration of the inference pass). A launch that a CUDA graph's
+one an iteration of the inference pass), and ``gma_aggregate`` GMA's
+aggregations (``models/raft/gma.py::aggregate``, one an iteration of its
+inference pass, on either device). A launch that a CUDA graph's
 capture records counts like any other; a graph's replay calls no
 wrapper and counts nothing there. ``GRAPHS``, also always on and reset with
 them, counts the captures (``raft_graph_capture``) and replays
@@ -55,17 +71,20 @@ import torch
 from torch.autograd import profiler as _prof
 
 COUNTS = {"fused_conv": 0, "fused_conv_f32": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0,
-          "corr_lookup": 0}
+          "corr_lookup": 0, "gma_aggregate": 0}
 GRAPHS = {"raft_graph_capture": 0, "raft_graph_replay": 0}
 _SESSION = {"k1.launches": 0, "k1.host_ns": 0, "raft.calls": 0, "raft.graph_replays": 0,
             "flowseq.pairs": 0, "flowseq.warm_starts": 0}
 
 _NULL = contextlib.nullcontext()
-_records: list[list] = []  # [name, parent index, host start ns, host end ns, start event, end event]
+# [name, parent index, host start ns, host end ns, start event, end event, a graph span's device ms]
+_records: list[list] = []
 _open: list[int] = []  # indices of the open records, innermost last
 _events: list = []  # the timing events' pool; the first _used are this session's
 _used = 0
 _session = 0  # profiler sessions started since import
+_pending: list[tuple] = []  # (record, start, end) of replayed graph spans whose device ms is not read yet
+_captured: list | None = None  # the graph spans of the capture under way, else None
 
 
 def _on_profiler_start(_start=_prof._run_on_profiler_start) -> None:
@@ -73,6 +92,7 @@ def _on_profiler_start(_start=_prof._run_on_profiler_start) -> None:
     _session += 1
     _records.clear()
     _open.clear()
+    _pending.clear()
     _used = 0
     for k in _SESSION:
         _SESSION[k] = 0
@@ -117,7 +137,7 @@ class _Span:
         self.range.__enter__()
         ev = _event() if torch.cuda.is_initialized() else None
         self.session = _session
-        self.rec = [self.name, _open[-1] if _open else None, time.perf_counter_ns(), None, ev, None]
+        self.rec = [self.name, _open[-1] if _open else None, time.perf_counter_ns(), None, ev, None, None]
         _open.append(len(_records))
         _records.append(self.rec)
         return self
@@ -138,6 +158,73 @@ def span(name: str):
     if not _prof._is_profiler_enabled:
         return _NULL
     return _Span(name)
+
+
+class _GraphSpan:
+    """A span inside a capture: its two timing events become graph nodes."""
+
+    __slots__ = ("name", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True, external=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True, external=True)
+        end.record()
+        _captured.append((self.name, self.start, end))
+        return False
+
+
+def graph_span(name: str):
+    """``span(name)``, or inside a capture under ``capturing()`` a span
+    recorded into the graph (see the module docstring)."""
+    if _captured is not None and torch.cuda.is_current_stream_capturing():
+        return _GraphSpan(name)
+    return span(name)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph's capture: yields the list that collects the
+    (name, start event, end event) of each graph span the capture records."""
+    global _captured
+    outer, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def _read_pending() -> None:
+    """Fill in the device ms of the replayed graph spans (waits for their events)."""
+    for rec, start, end in _pending:
+        end.synchronize()
+        rec[6] = start.elapsed_time(end)
+    _pending.clear()
+
+
+def before_replay() -> None:
+    """Before a replay of a graph with graph spans: read the device ms of the
+    spans earlier replays recorded, before this one overwrites their events."""
+    if _pending:
+        _read_pending()
+
+
+def replayed(captured: list) -> None:
+    """After a replay of a graph whose capture recorded ``captured`` graph
+    spans: one record each while a profiler records."""
+    if not _prof._is_profiler_enabled:
+        return
+    parent = _open[-1] if _open else None
+    for name, start, end in captured:
+        rec = [name, parent, None, None, None, None, None]
+        _records.append(rec)
+        _pending.append((rec, start, end))
 
 
 def count_k1(host_ns: int) -> None:
@@ -164,13 +251,15 @@ def count_flowseq(warm: bool) -> None:
 def records() -> list[dict]:
     """This session's spans in the order they opened: name, parent (an index
     into this list, or None), host ms and device ms (None without CUDA
-    events; either None while the span is open). Synchronises the device."""
+    events; either None while the span is open; host ms None for a graph
+    span). Synchronises the device."""
     if any(r[5] is not None for r in _records):
         torch.cuda.synchronize()
+    _read_pending()
     return [{"name": name, "parent": parent,
              "host_ms": None if t1 is None else (t1 - t0) / 1e6,
-             "device_ms": None if e1 is None else e0.elapsed_time(e1)}
-            for name, parent, t0, t1, e0, e1 in _records]
+             "device_ms": ms if e1 is None else e0.elapsed_time(e1)}
+            for name, parent, t0, t1, e0, e1, ms in _records]
 
 
 def counters() -> dict[str, int]:

@@ -2,7 +2,9 @@
 
 Port of ``zero_tig_tpu/flowtools/registry.py`` (:17-103), with the same four
 names and iteration counts: ``raft`` (12), ``raft_small`` (12),
-``lk_pyramid`` (3, nothing to train) and ``pwc_lite`` (1). A model is an
+``lk_pyramid`` (3, nothing to train) and ``pwc_lite`` (1); and ``gma`` (12,
+GMA's training default; ``models/raft/gma.py``), which the JAX package does
+not have and which is not trained here. A model is an
 ``nn.Module``; ``init_fn(seed or torch.Generator, device=None)`` draws its
 weights with torch's ``Conv2d`` defaults (weight and bias uniform in
 +-1/sqrt(fan_in), BatchNorm at identity) on the CPU and moves it to
@@ -11,11 +13,13 @@ weights with torch's ``Conv2d`` defaults (weight and bias uniform in
 ``forward_fn(model, img1, img2, iters, precision="highest")`` gives
 (flow_low, flow_up) without gradients, for (B, H, W, 3) frames in [0, 255]
 on the model's device; "highest" is f32 throughout (TF32 off), "fast" takes
-bf16 conv operands with f32 sums, JAX's two modes. ``raft`` runs its
-inference loop on K1 and the GRU kernel (K2) on the card, the others on
-library convolutions. ``predictions_fn(model, img1, img2, iters,
-precision="highest")`` gives the differentiable (seq, B, H, W, 2) prediction
-sequence the sequence loss takes (``flowtools/train.py``).
+bf16 conv operands with f32 sums, JAX's two modes. ``raft`` and ``gma`` run
+their inference loops on K1 and the GRU kernel (K2) on the card, the others
+on library convolutions; those two take a warm start (``flow_init``), so
+``flowtools/sequence.py::flow_chunk`` serves them (``warm_start``).
+``predictions_fn(model, img1, img2, iters, precision="highest")`` gives the
+differentiable (seq, B, H, W, 2) prediction sequence the sequence loss
+takes (``flowtools/train.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..core.precision import compute_dtype, numerics
 from ..models import init_weights
 from ..models.classical_flow import LucasKanade
 from ..models.pwc import PWCLite
+from ..models.raft.gma import RAFTGMA
 from ..models.raft.raft import RAFT
 from ..models.raft.small import RAFTSmall
 
@@ -45,6 +50,7 @@ class FlowModel:
     # prediction sequence for supervised training (RAFT: one a refinement
     # iteration; PWC: one a pyramid level); None = not trainable here
     predictions_fn: Callable[..., torch.Tensor] | None = None
+    warm_start: bool = False  # a RAFT that takes flow_init: flow_chunk runs it
 
 
 _REGISTRY: dict[str, FlowModel] = {}
@@ -72,10 +78,10 @@ def _init(cls) -> Callable[..., nn.Module]:
 
 
 def prepare_raft(model: RAFT, precision: str) -> None:
-    """The weight operands of RAFT's inference loop (K1 and the GRU kernel
-    take the update core and the mask head) in ``precision``'s dtype, built
-    again only where the precision or the update block's weights changed
-    (``RAFT.prepare``)."""
+    """The weight operands of RAFT's (or GMA's) inference loop (K1 and the
+    GRU kernel take the update core and the mask head) in ``precision``'s
+    dtype, built again only where the precision or the weights they come
+    from changed (``RAFT.prepare``, ``RAFTGMA.prepare``)."""
     model.prepare(compute_dtype(precision))
 
 
@@ -97,7 +103,8 @@ def _predictions(model: nn.Module, img1, img2, iters: int, precision: str = "hig
 
 
 def _register_builtin() -> None:
-    register_flow_model(FlowModel("raft", _init(RAFT), _raft_forward, 12, _predictions))
+    register_flow_model(FlowModel("raft", _init(RAFT), _raft_forward, 12, _predictions, warm_start=True))
+    register_flow_model(FlowModel("gma", _init(RAFTGMA), _raft_forward, 12, None, warm_start=True))
     register_flow_model(FlowModel("raft_small", _init(RAFTSmall), _plain_forward, 12, _predictions))
     register_flow_model(FlowModel("lk_pyramid", _init(LucasKanade), _plain_forward, 3, None))
     register_flow_model(FlowModel("pwc_lite", _init(PWCLite), _plain_forward, 1, _predictions))

@@ -16,6 +16,9 @@ every frame that has a predecessor in its sequence. For each such pair:
 4. ``ops/splat.py::forward_interpolate`` of the pair's 1/8 flow becomes the
    next pair's ``flow_init``.
 
+``model`` is a RAFT or a GMA (``models/raft/gma.py::RAFTGMA``, a RAFT
+whose graphed pass holds the attention and the aggregations).
+
 A flagged frame starts a sequence: it gives no flow and resets the warm
 start to zero. Nothing in a chunk copies to the host or waits for the
 device. The weight operands come from ``registry.prepare_raft``, as

@@ -6,7 +6,7 @@ ptlflow_scripts/test.py:240-295). Frames are read and flows written with
 the port's codec. By default each pair runs cold and the flow is written at
 the size the model gives (the padded size, for RAFT), as JAX writes it;
 ``write_sintel_submission(..., warm_start=True)`` is RAFT's published Sintel
-submission instead (``flowtools/sequence.py``).
+submission instead (``flowtools/sequence.py``), which GMA's evaluation keeps.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from .registry import get_flow_model
 from .sequence import flow_chunk
 
 CHUNK = 8  # frames a warm-started scene hands to ``flow_chunk`` at a time
+SINTEL_ITERS = 32  # the published submission's iterations (create_sintel_submission)
 
 
 def _flow_fn(model_name: str, model, iters: int | None, device, precision: str):
@@ -57,12 +58,13 @@ def write_sintel_submission(
     ``warm_start=False``: every pair runs cold through the registry's
     ``forward_fn`` and the flow is written at the size the model gives
     (RAFT's padded size), as the JAX package writes it. ``warm_start=True``
-    (``raft`` only): RAFT's published Sintel submission
-    (``evaluate.py::create_sintel_submission --warm_start``, which passes
-    ``iters=32``): each scene runs through ``flow_chunk``, every pair after a
-    scene's first starting from the previous pair's forward-interpolated
-    flow, each frame read and copied to the device once, and the flow is
-    written at the frame's size (``InputPadder.unpad``)."""
+    (a model that takes ``flow_init``: ``raft``, ``gma``): RAFT's published
+    Sintel submission (``evaluate.py::create_sintel_submission
+    --warm_start``, at its 32 iterations unless ``iters`` says otherwise):
+    each scene runs through ``flow_chunk``, every pair after a scene's first
+    starting from the previous pair's forward-interpolated flow, each frame
+    read and copied to the device once, and the flow is written at the
+    frame's size (``InputPadder.unpad``)."""
     if warm_start:
         return _sintel_warm(model_name, model, frames_root, out_root, iters, device, precision)
     flow = _flow_fn(model_name, model, iters, device, precision)
@@ -91,9 +93,9 @@ def _sintel_scenes(frames_root: str, out_root: str):
 
 
 def _sintel_warm(model_name, model, frames_root, out_root, iters, device, precision) -> int:
-    if model_name != "raft":
-        raise ValueError(f"warm start needs RAFT's flow_init, not {model_name!r}")
-    iters = iters or get_flow_model(model_name).default_iters
+    if not get_flow_model(model_name).warm_start:
+        raise ValueError(f"warm start needs a model that takes flow_init, not {model_name!r}")
+    iters = iters or SINTEL_ITERS
     device = resolve_device(device)
     count = 0
     for _, frames, odir in _sintel_scenes(frames_root, out_root):

@@ -196,16 +196,18 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
 @dataclasses.dataclass
 class _FlowGraph:
     """One captured inference pass of a RAFT: its key, the operands it
-    reads (held so that the key's ``id`` stays theirs) and the static inputs
+    reads (held so that the key's ``id`` stays theirs), the static inputs
     (the two images and, where the pass has one, ``flow_init``) and outputs
-    (flow_low, flow_up). The pass's intermediates live in the graph's
-    private memory pool."""
+    (flow_low, flow_up), and the spans the capture recorded into the graph
+    (``core/spans.py::graph_span``; none in RAFT's own pass). The pass's
+    intermediates live in the graph's private memory pool."""
 
     key: tuple
     kw: dict
     graph: torch.cuda.CUDAGraph
     inputs: tuple[torch.Tensor, ...]
     outputs: tuple[torch.Tensor, torch.Tensor]
+    graph_spans: list
 
     @classmethod
     @torch.no_grad()
@@ -231,15 +233,19 @@ class _FlowGraph:
         # mode on; the lookup kernel refuses levels that require grad)
         with torch.inference_mode(False), torch.no_grad():
             inputs = tuple(t.clone() for t in (image1, image2, flow_init) if t is not None)
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            with spans.capturing() as graph_spans, torch.cuda.graph(graph, stream=side,
+                                                                    capture_error_mode="thread_local"):
                 outputs = raft._infer(*inputs[:2], iters, *inputs[2:])
         spans.GRAPHS["raft_graph_capture"] += 1
-        return cls(key, raft.update_block.kw, graph, inputs, outputs), flows
+        return cls(key, raft.update_block.kw, graph, inputs, outputs, graph_spans), flows
 
     def replay(self, image1: torch.Tensor, image2: torch.Tensor,
                flow_init: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
         for static, t in zip(self.inputs, (image1, image2, flow_init)):
             static.copy_(t)
+        if self.graph_spans:
+            spans.before_replay()
         self.graph.replay()
+        spans.replayed(self.graph_spans)
         spans.GRAPHS["raft_graph_replay"] += 1
         return self.outputs

@@ -14,7 +14,10 @@ kernel ``zero_tig_tpu/models/raft/update_kernel.py::update_core_kernel``:
 
 as 9 K1 launches (``ops/fused_conv.py``; the concats are K1's multi-input
 loads) and 4 launches of the GRU kernel (``ops/gru.py``) -- 13 per
-iteration. Numerics as the TPU kernel (update_kernel.py:24-26): operands of
+iteration, in two halves: ``motion_core`` (the three motion-encoder
+launches) and ``gru_core`` (the GRU and the flow head on the input parts it
+is given), between which GMA's iteration (``gma.py::gma_core``) puts its
+aggregation. Numerics as the TPU kernel (update_kernel.py:24-26): operands of
 every conv in the working dtype (bf16 in fast mode), f32 sums, gates and
 blend; net' stored in the working dtype, delta in f32. ``convf1`` (7x7 on 2
 channels) and ``convf2`` stay outside the core, as in JAX, as library
@@ -23,7 +26,8 @@ convolutions. The mask head runs once after the loop, as 2 K1 launches.
 ``BasicUpdateBlock.forward`` is the module path of JAX's
 ``BasicUpdateBlock.__call__`` (update.py:156-162) with the mask head: library
 convolutions under autograd, for flow-model training, where neither K1 nor
-the GRU kernel (they have no backward) runs.
+the GRU kernel (they have no backward) runs; its halves ``motion`` and
+``recurrent`` serve GMA's module path too.
 """
 
 from __future__ import annotations
@@ -117,13 +121,24 @@ class BasicUpdateBlock(nn.Module):
         delta), NHWC in and out, conv operands in ``dtype``. The dtypes
         follow JAX's promotions: ``flow`` and the concatenations holding it
         are f32, every conv's output, the gates and net' are in ``dtype``."""
-        enc, gru = self.encoder, self.gru
-        conv = lambda c, x: conv2d_nhwc(c, x, dtype)  # noqa: E731
         flow = flow.float()
+        out = self.motion(corr, flow, dtype)
+        return self.recurrent(net, torch.cat([inp.float(), out.float(), flow], -1), dtype)
+
+    def motion(self, corr: torch.Tensor, flow: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The motion encoder's convolutions on the plain modules, before the
+        flow is appended: (B, h, w, 126) in ``dtype``."""
+        enc = self.encoder
+        conv = lambda c, x: conv2d_nhwc(c, x, dtype)  # noqa: E731
         cor = torch.relu(conv(enc.convc2, torch.relu(conv(enc.convc1, corr))))
         flo = torch.relu(conv(enc.convf2, torch.relu(conv(enc.convf1, flow))))
-        out = torch.relu(conv(enc.conv, torch.cat([cor, flo], -1)))
-        x = torch.cat([inp.float(), out.float(), flow], -1)
+        return torch.relu(conv(enc.conv, torch.cat([cor, flo], -1)))
+
+    def recurrent(self, net: torch.Tensor, x: torch.Tensor, dtype: torch.dtype):
+        """The separable ConvGRU on ``net`` and its f32 input ``x``, the flow
+        head and the mask head on the plain modules: (net', mask, delta)."""
+        gru = self.gru
+        conv = lambda c, x: conv2d_nhwc(c, x, dtype)  # noqa: E731
         h = net
         for n in "12":
             hx = torch.cat([h.float(), x], -1)
@@ -157,12 +172,22 @@ def update_core(
     corr in it); flow: (B, h, w, 2) f32.
     Returns (net' in the working dtype, delta f32)."""
     dt = kw["convc1"].w.dtype
-    f32 = torch.float32
+    return gru_core(kw, net, [inp, motion_core(kw, corr, flo), flow.to(dt).contiguous()])
+
+
+def motion_core(kw: dict, corr: torch.Tensor, flo: torch.Tensor) -> torch.Tensor:
+    """The motion encoder's three K1 launches: (B, h, w, 126) in the working dtype."""
     cor = fused_conv([corr], kw["convc1"], act="relu")
     cor = fused_conv([cor], kw["convc2"], act="relu")
-    mot = fused_conv([cor, flo], kw["conv"], act="relu")
-    x = [inp, mot, flow.to(dt).contiguous()]
+    return fused_conv([cor, flo], kw["conv"], act="relu")
 
+
+def gru_core(kw: dict, net: torch.Tensor, x: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The separable ConvGRU on ``net`` and the input parts ``x`` (K1 reads
+    their concatenation), then the flow head: (net' in the working dtype,
+    delta f32). 6 K1 and 4 GRU launches."""
+    dt = kw["convc1"].w.dtype
+    f32 = torch.float32
     # horizontal pass (1x5): net arrives in the working dtype
     zr = fused_conv([net, *x], kw["zr1"], act="sigmoid", out_dtype=f32)
     rh = gru_reset(zr, net, dt)
