@@ -45,8 +45,10 @@ zero_tig_torch/csrc from the checkout, then:
      and conv3x3_bf16; torch.mul / torch.lerp for the GRU kernel), K1 per
      layer with the share of its bound it reaches, in bf16 (fast model) and
      in f32 (highest model; cuDNN's f32 convolution with TF32 off, the bound
-     at the f32 FMA peak; also RAFT's layers at the sidecar's 63x125 grid),
-     with sums per 1080p frame, 45x80 frame and 63x125 pair, the host's time for
+     at the f32 FMA peak; also RAFT's layers at the sidecar's 63x125 grid
+     and at Sintel's 55x128 with 32 iterations, and GMA's gates and to_v
+     there), with sums per 1080p frame, 45x80 frame, 63x125 pair and 55x128
+     pair (GMA's own launches apart), the host's time for
      one K1 launch; K3's entries on a uniform and a low-light frame beside
      their plain chains and bounds. Work at full resolution is timed with
      CUDA events over back-to-back calls; work at the 45x80 RAFT grid and
@@ -146,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import glob
 import importlib.util
 import io
@@ -255,10 +258,26 @@ K1_PER_RAFT = K1_PER_TRAIN_FRAME  # one RAFT pass: the update core and the mask 
 TRAIN_FRAMES = 4
 RAFT_K1_LAYERS = [layer for layer in K1_LAYERS if layer[0].startswith("raft.")]
 SIDECAR = (63, 125)  # RAFT's update grid at the flow sidecar's 500x1000
-# K1's f32 launches as phase 5 times them: a highest-mode frame's, and a
-# sidecar pair's at 63x125
-K1_F32_LAYERS = K1_LAYERS + [(f"{la[0]}@63x125", la[1], la[2], SIDECAR, *la[4:]) for la in RAFT_K1_LAYERS]
-GRID_LABELS = {FULL: "1080p", RAFT: "45x80", SIDECAR: "63x125"}
+SINTEL_GRID, SINTEL_ITERS = (55, 128), 32  # RAFT's and GMA's at Sintel's 436x1024 (padded to 440), as published
+# GMA's launches that differ from RAFT's: the GRU's gates read four parts,
+# [net | inp | mf | glob], and to_v (1x1, gamma folded) runs each iteration
+GMA_K1_LAYERS = [
+    ("gma.gru.zr1", ("gma", "zr1"), [128, 128, 128, 128], SINTEL_GRID, "sigmoid", False, [], True, SINTEL_ITERS),
+    ("gma.gru.q1", ("gma", "q1"), [128, 128, 128, 128], SINTEL_GRID, "tanh", False, [], True, SINTEL_ITERS),
+    ("gma.gru.zr2", ("gma", "zr2"), [128, 128, 128, 128], SINTEL_GRID, "sigmoid", False, [], True, SINTEL_ITERS),
+    ("gma.gru.q2", ("gma", "q2"), [128, 128, 128, 128], SINTEL_GRID, "tanh", False, [], True, SINTEL_ITERS),
+    ("gma.to_v", ("gma", "to_v"), [128], SINTEL_GRID, "none", False, [], True, SINTEL_ITERS),
+]
+# K1's f32 launches as phase 5 times them: a highest-mode frame's, a sidecar
+# pair's at 63x125, a Sintel pair's at 55x128 (32 iterations) and GMA's own
+K1_F32_LAYERS = (
+    K1_LAYERS
+    + [(f"{la[0]}@63x125", la[1], la[2], SIDECAR, *la[4:]) for la in RAFT_K1_LAYERS]
+    + [(f"{la[0]}@55x128", la[1], la[2], SINTEL_GRID, *la[4:8], SINTEL_ITERS if la[-1] == ITERS else la[-1])
+       for la in RAFT_K1_LAYERS]
+    + [(f"{la[0]}@55x128", *la[1:]) for la in GMA_K1_LAYERS]
+)
+GRID_LABELS = {FULL: "1080p", RAFT: "45x80", SIDECAR: "63x125", SINTEL_GRID: "55x128"}
 # conv3x3_bf16's own path: (Cin, Cout) of its 1080p calls
 CONV3X3_CALLS = [(64, 64), (48, 48)]
 
@@ -294,11 +313,14 @@ MMA, FMA = "zt::fused_conv_mma_kernel", "zt::fused_conv_kernel"
 KERNELS = ("fused_conv", "fused_conv_f32", "gru", "equalize_u8", "conv3x3_bf16", "corr_lookup")
 
 
-def launches(k1: int = 0, gru: int = 0, eq: int = 0, c3: int = 0, corr: int = 0, *, f32: bool = False) -> dict:
+def launches(k1: int = 0, gru: int = 0, eq: int = 0, c3: int = 0, corr: int = 0, *, f32: bool = False,
+             grid: int = 0) -> dict:
     """The launch counts a path must show: K1's under fused_conv_f32 where
-    its operands are f32 (highest mode), under fused_conv where bf16."""
-    return {"fused_conv": 0 if f32 else k1, "fused_conv_f32": k1 if f32 else 0, "gru": gru, "equalize_u8": eq,
-            "conv3x3_bf16": c3, "corr_lookup": corr}
+    its operands are f32 (highest mode), under fused_conv where bf16; of
+    the f32 ones, ``grid`` (RAFT's) under fused_conv_f32_grid."""
+    return {"fused_conv": 0 if f32 else k1, "fused_conv_f32": k1 if f32 else 0,
+            "fused_conv_f32_grid": grid if f32 else 0, "gru": gru, "equalize_u8": eq, "conv3x3_bf16": c3,
+            "corr_lookup": corr, "gma_aggregate": 0}
 
 
 def wrapper_launches(graphs: dict, frames: int, train_frames: int = 0, *, f32: bool = False) -> dict:
@@ -314,7 +336,7 @@ def wrapper_launches(graphs: dict, frames: int, train_frames: int = 0, *, f32: b
     if captures + graphs["raft_graph_replay"] != calls:
         fail(f"RAFT's graph captured and replayed {graphs} for {calls} frames")
     return launches((K1_PER_FRAME - K1_PER_RAFT) * frames + K1_PER_RAFT * 2 * captures, GRU_PER_FRAME * 2 * captures,
-                    EQ_PER_FRAME * calls, corr=ITERS * 2 * captures, f32=f32)
+                    EQ_PER_FRAME * calls, corr=ITERS * 2 * captures, f32=f32, grid=K1_PER_RAFT * 2 * captures)
 
 
 def fail(msg: str) -> None:
@@ -391,8 +413,17 @@ def k1_bound_ms(layer, cw) -> tuple[float, float, str]:
     return max(t_ops, t_bytes), flops, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+@functools.lru_cache(maxsize=4)
+def gma_operands(device: str, dtype: torch.dtype) -> dict:
+    """The K1 operands of a seeded GMA's update block."""
+    return get_flow_model("gma").init_fn(SEED, device=device).prepare(dtype)
+
+
 def layer_weights(model, key):
     owner, name = key
+    if owner == "gma":  # GMA's own launches, in the dtype and on the device of ``model``'s
+        w = model.raft.update_block.kw["convc1"].w
+        return gma_operands(str(w.device), w.dtype)[name]
     if owner == "raft":
         return model.raft.update_block.kw[name]
     return getattr(model, owner).kw[name]
@@ -733,9 +764,10 @@ FMA_CASES = [
     ((1, 45, 80), (128, 128, 126, 2), (1, 5), 256, "f32"),  # 64 channels, k-split
     ((1, 63, 125), (128, 128, 126, 2), (1, 5), 256, "leaky"),  # 64 channels
     ((1, 45, 80), (128, 128, 126, 2), (5, 1), 128, "f32"),  # 32 channels, k-split
-    ((1, 63, 125), (256,), (1, 1), 576, "residual"),  # 32 channels
+    ((1, 63, 125), (256,), (1, 1), 576, "residual"),  # 64 channels
     ((1, 45, 80), (192, 64), (3, 3), 192, "residual"),  # 16 channels, k-split; part 1 a 4-byte aligned view
-    ((1, 45, 80), (256,), (1, 1), 576, "anchor"),  # 16 channels
+    ((1, 45, 80), (256,), (1, 1), 576, "anchor"),  # 64 channels (4 warps, not 16 channels in one)
+    ((1, 55, 128), (128, 128, 128, 128), (1, 5), 256, "f32"),  # GMA's gate at Sintel's grid
     ((2, 37, 53), (5, 7, 3, 1), (1, 5), 126, "anchor"),  # ragged, batch 2
     ((2, 23, 41), (324,), (5, 1), 126, "residual"),
 ]
@@ -743,23 +775,23 @@ FMA_CASES = [
 
 def fma_branch(plan) -> str:
     """Which of k1_plan's f32 choices a plan is (ops/fused_conv.py::_fma_plan)."""
-    if plan.rows == 16:
+    if not plan.grid_rule:
         return "full, head" if plan.cg == 1 else f"full, {plan.resident} resident"
     if plan.cg == 1:
         return "grid, head"
     return f"grid, {8 * plan.cg} channels, {'k-split' if plan.kg > 1 else 'one k-group'}"
 
 
-FMA_BRANCHES = 10  # full: head, 1 or 2 resident; grid: head, 64/32/16 channels with and without a k-split
+FMA_BRANCHES = 8  # full: head, 1 or 2 resident; grid: head, 64 channels with and without a k-split, 32 and 16 with a k-split (4 warps)
 
 
 def k1_fma_ragged(gen) -> float:
     """The FMA kernel on every branch of k1_plan's f32 choice (FMA_CASES):
-    the 4-part GRU concat (128, 128, 126, 2), odd parts copied by element, a
-    part that is a view aligned to 4 bytes only, all four tap shapes, H, W
-    and Cout off the tile, batches of 2, every epilogue; against the twin
-    within 1e-5 + 1e-5*max|ref| (f32 sums in another order), and two
-    launches on the same inputs bit-equal."""
+    the 4-part GRU concat (128, 128, 126, 2) and GMA's (4 x 128), odd parts
+    copied by element, a part that is a view aligned to 4 bytes only, all
+    four tap shapes, H, W and Cout off the tile, batches of 2, every
+    epilogue; against the twin within 1e-5 + 1e-5*max|ref| (f32 sums in
+    another order), and two launches on the same inputs bit-equal."""
     worst, branches = 0.0, set()
     for (b, h, w), parts, (kh, kw), cout, epi in FMA_CASES:
         cin = sum(parts)
@@ -1030,7 +1062,8 @@ def k1_timing_rows(model, layers, gen) -> list[dict]:
         lib = timer(lambda: F.conv2d(x_cl, w_cl, bias, padding=pad))
         bound, flops, by = k1_bound_ms(layer, cw)
         mode = "f32" if cw.w.dtype == torch.float32 else "bf16"
-        rows.append({"layer": name, "mode": mode, "grid": GRID_LABELS[grid], "shape": [1, *grid, *cw.w.shape[2:]],
+        label = ("GMA " if name.startswith("gma.") else "") + GRID_LABELS[grid]
+        rows.append({"layer": name, "mode": mode, "grid": label, "shape": [1, *grid, *cw.w.shape[2:]],
                      "taps": cw.w.shape[0] * cw.w.shape[1], "ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9, "per_frame": layer[-1]})
         print(f"time K1 {mode:4s} {name:25s} ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
@@ -1039,17 +1072,15 @@ def k1_timing_rows(model, layers, gen) -> list[dict]:
 
 
 def k1_grid_sums(rows) -> dict:
-    """Per grid, the sums over a frame's (or a pair's) launches of each
-    timing, and the launches."""
+    """Per grid (GMA's own launches apart), the sums over a frame's (or a
+    pair's) launches of each timing, and the launches."""
     sums = {}
-    for label in GRID_LABELS.values():
+    for label in dict.fromkeys(r["grid"] for r in rows):
         sub = [r for r in rows if r["grid"] == label]
-        if not sub:
-            continue
         tot = {k: sum(r[k] * r["per_frame"] for r in sub) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         tot["launches"] = sum(r["per_frame"] for r in sub)
         sums[label] = tot
-        print(f"time K1 {rows[0]['mode']} per {'pair' if label == '63x125' else 'frame'} at {label}: "
+        print(f"time K1 {rows[0]['mode']} per {'frame' if label in ('1080p', '45x80') else 'pair'} at {label}: "
               f"ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
               f"bound_ms={tot['bound_ms']:.4f} over {tot['launches']} launches", flush=True)
     return sums
@@ -1065,7 +1096,7 @@ def phase5_timings(fast, highest, gen, report):
         rows32 = k1_timing_rows(highest, K1_F32_LAYERS, gen)
     report["k1_f32_layers"] = rows32
     report["k1_f32_per_grid"] = k1_grid_sums(rows32)
-    rows32 = [r for r in rows32 if r["grid"] != "63x125"]  # a highest-mode frame's 121 launches
+    rows32 = [r for r in rows32 if r["grid"] in ("1080p", "45x80")]  # a highest-mode frame's 121 launches
 
     # the host's side of one launch_k1 call (checks, plan, ctypes): calls
     # made back to back with no synchronisation, on a layer short enough
@@ -2055,7 +2086,7 @@ def phase11_multidevice(sd, report, smi, main_ms: float) -> None:
 
 # RAFT's update-core grid at each of the sidecar's operating points: the
 # frame padded to /8, over 8
-FLOW_GRIDS = {"500x1000": SIDECAR, "Sintel 436x1024": (55, 128), "KITTI 375x1242": (47, 156)}
+FLOW_GRIDS = {"500x1000": SIDECAR, "Sintel 436x1024": SINTEL_GRID, "KITTI 375x1242": (47, 156)}
 FLOW_MODELS = ("lk_pyramid", "pwc_lite", "raft", "raft_small")
 K1_PER_PAIR = sum(layer[-1] for layer in RAFT_K1_LAYERS)  # 12 x 9 in the update core + 2 in the mask head
 GRU_PER_PAIR = 4 * ITERS
@@ -2233,7 +2264,7 @@ def phase12_flow_sidecar(report, smi, gen) -> dict:
         pair = infer_pair("raft", raft, str(frames[0]), str(frames[1]), gt_flow_path=str(gts[0]), device="cuda")
         torch.cuda.synchronize()
         side = dict(spans.COUNTS)
-        want = launches(K1_PER_PAIR, GRU_PER_PAIR, corr=ITERS, f32=True)
+        want = launches(K1_PER_PAIR, GRU_PER_PAIR, corr=ITERS, f32=True, grid=K1_PER_PAIR)
         print(f"phase 12 counted path: infer_pair('raft') on one 436x1024 pair launches {side} "
               f"(expected {want}; RAFT graph {spans.GRAPHS}, eager: none); its EPE against the fixture's flow "
               f"{pair['epe']:.3f} (random weights)", flush=True)

@@ -7,8 +7,9 @@ checkout on one card.
 Imports ``zero_tig_torch`` from DIR (default: the checkout beside this
 script), builds its kernels there, and runs ``chip_smoke.k1_timing_rows`` of
 the checkout beside this script on that package: every f32 K1 launch of a
-highest-mode 1080p frame (``chip_smoke.K1_LAYERS``) and a flow-sidecar pair's
-RAFT launches at 63x125, on the seeded highest-mode model, each timed beside
+highest-mode 1080p frame (``chip_smoke.K1_LAYERS``), a flow-sidecar pair's
+RAFT launches at 63x125, a Sintel pair's at 55x128 and GMA's gates and
+``to_v`` there, on the seeded highest-mode model, each timed beside
 its plain twin, cuDNN's f32 convolution with TF32 off and its bound
 (``chip_smoke.k1_bound_ms``). Prints one JSON line with the card's name and
 power limit, the rows and their sums per grid.
@@ -16,12 +17,15 @@ power limit, the rows and their sums per grid.
 Two trees are compared in one call on one card, in turns (old, new, new,
 old). With --out FILE the line is also appended to FILE.
 
---sweep times each layer (those whose name holds one of the NAMEs, default
-all) on its ``k1_plan`` plan and on every other tiling of a grid of
-``fma_plan`` tilings the kernel takes (tile rows, channel groups, k-groups,
-chunk, resident blocks), and adds, per layer, the fastest five and the
-fastest that launch at least 132 blocks: how ``k1_plan``'s choices were
-made. It needs a tree with ``fma_plan``.
+--sweep times each layer (those whose name and grid, as in
+``raft.mask2@45x80``, hold one of the NAMEs, in the NAMEs' order; default
+all, RAFT's also at KITTI's 47x156) on its ``k1_plan`` plan and on every
+other tiling of a grid of ``fma_plan`` tilings the kernel takes (tile rows,
+channel groups, k-groups, chunk, resident blocks; at the RAFT grids the
+rows 2, 4 and 8 and those that cut the grid's height into tiles of one
+height, give or take a row), and adds, per layer, the fastest five and the
+fastest that launch at least 132 blocks, and every tiling's time: how
+``k1_plan``'s choices were made. It needs a tree with ``fma_plan``.
 """
 
 from __future__ import annotations
@@ -68,8 +72,13 @@ def main() -> int:
         rows = cs.k1_timing_rows(highest, cs.K1_F32_LAYERS, gen)
     result = {"tree": str(args.tree), "device": smi, "per_grid": cs.k1_grid_sums(rows), "rows": rows}
     if args.sweep is not None:
-        names = [n for n in args.sweep.split(",") if n]
-        layers = [la for la in cs.K1_F32_LAYERS if not names or any(n in la[0] for n in names)]
+        # each layer under its name and grid (RAFT's also at KITTI's 47x156),
+        # in the order of the first NAME its label holds
+        kitti = cs.FLOW_GRIDS["KITTI 375x1242"]
+        labelled = {la[0] if "@" in la[0] else f"{la[0]}@{la[3][0]}x{la[3][1]}": la for la in
+                    cs.K1_F32_LAYERS + [(f"{la[0]}@47x156", la[1], la[2], kitti, *la[4:]) for la in cs.RAFT_K1_LAYERS]}
+        names = [n for n in args.sweep.split(",") if n] or [""]
+        layers = list({k: la for n in names for k, la in labelled.items() if n in k}.values())
         with precision.numerics("highest"):
             result["sweep"] = sweep(cs, highest, layers, gen)
     line = json.dumps(result)
@@ -97,7 +106,9 @@ def sweep(cs, model, layers, gen) -> dict:
         parts = tuple(layer[2])
         timer = cs.cuda_ms if (h, w) == cs.FULL else cs.graph_ms
         picked = k1_plan(torch.float32, kh, kw, parts, h, w, cout)
-        rows_s = (8, 16, 32) if (h, w) == cs.FULL else (2, 4, 8)
+        # at the RAFT grids also the tile rows that cut h into tiles of one
+        # height, give or take a row (7 at 55: 8 tiles, one row of padding)
+        rows_s = (8, 16, 32) if (h, w) == cs.FULL else sorted({2, 4, 8} | {-(-h // n) for n in range(1, h + 1)} & set(range(5, 13)))
         cgs = (1,) if cout <= 8 else sorted({min(8, math.ceil(cout / 8)), 2, 4, 8} - {c for c in (2, 4, 8) if c * 8 > 2 * cout})
         times = []
         for rows, cg, kg, kc, resident in itertools.product(rows_s, cgs, (1, 2, 4, 8), (4, 8, 16, 32, 64), (1, 2)):
@@ -116,7 +127,8 @@ def sweep(cs, model, layers, gen) -> dict:
         print(f"sweep {name:25s} k1_plan {ms:.4f}@rows{picked.rows}/cg{picked.cg}/kg{picked.kg}/kc{picked.kc}/"
               f"res{picked.resident}/{picked.blocks}blk of {len(times)}; fastest " + " ".join(map(fmt, times[:5]))
               + "; fastest with >= 132 blocks " + " ".join(map(fmt, wide[:2])), flush=True)
-        out[name] = {"k1_plan_ms": ms, "fastest": times[:5], "fastest_wide": wide[:2], "tilings": len(times)}
+        out[name] = {"k1_plan_ms": ms, "k1_plan": [picked.rows, picked.cg, picked.kg, picked.kc, picked.resident, picked.blocks],
+                     "fastest": times[:5], "fastest_wide": wide[:2], "tilings": len(times), "all": times}
     return out
 
 

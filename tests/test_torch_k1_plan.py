@@ -22,6 +22,7 @@ import chip_smoke
 from zero_tig_torch.models import build_model, init_random_state_dict
 from zero_tig_torch.ops.fused_conv import (
     F32_COLS,
+    F32_MIN_THREADS,
     F32_THREADS,
     K1_TILES,
     SM_COUNT,
@@ -104,6 +105,9 @@ def _check_f32_plan(kh, kw, parts, h, w, cout, batch=1, aligns=None):
         assert v in (1, 2, 4) and c % v == 0 and off % v == 0
         assert aligns is None or aligns[j] % (4 * v) == 0
         off += c
+    # off the 1080p branch no block of more than 8 channels has fewer than 4 warps
+    if plan.grid_rule and plan.cg > 1:
+        assert plan.threads >= F32_MIN_THREADS, plan
     # where the layer has two blocks' work of 64 pixels x 64 channels for
     # every SM, it launches a block on each
     if math.ceil(h * w * batch / 64) * math.ceil(cout / 64) >= 2 * SM_COUNT:
@@ -125,9 +129,154 @@ def test_f32_launches_take_the_fma_kernel(fast_model, layer):
 
 @pytest.mark.parametrize("grid,batch", SIDECAR, ids=[f"{g[0]}x{g[1]}b{b}" for g, b in SIDECAR])
 def test_f32_plan_at_the_flow_sidecar_grids(fast_model, grid, batch):
-    for layer in chip_smoke.RAFT_K1_LAYERS:
+    for layer in chip_smoke.RAFT_K1_LAYERS + chip_smoke.GMA_K1_LAYERS:
         kh, kw, _, cout = chip_smoke.layer_weights(fast_model, layer[1]).w.shape
         _check_f32_plan(kh, kw, layer[2], *grid, cout, batch)
+
+
+# the 1080p branch's tilings (rows, cg, kg, kc, resident), as measured and
+# chosen at 1080p; the grid rule's 4-warp floor does not reach them
+FULL_PLANS = {
+    "d1.conv1": (16, 6, 1, 4, 1),
+    "d1.conv2": (16, 6, 1, 8, 1),
+    "d1.conv3+anchor": (16, 1, 2, 8, 2),
+    "enh.in_conv": (16, 8, 1, 12, 2),
+    "enh.block+res": (16, 8, 1, 8, 2),
+    "enh.out_conv": (16, 1, 2, 8, 2),
+    "d2.conv1": (16, 6, 1, 12, 1),
+    "d2.conv2": (16, 6, 1, 8, 1),
+    "d2.conv3+anchor": (16, 1, 2, 8, 2),
+    "enh.in_conv@540x960": (16, 8, 1, 12, 2),
+    "enh.block+res@540x960": (16, 8, 1, 8, 2),
+    "enh.out_conv@540x960": (16, 1, 2, 8, 2),
+}
+
+
+@pytest.mark.parametrize("name", FULL_PLANS)
+def test_f32_plans_at_1080p_are_unchanged(fast_model, name):
+    layer = next(la for la in LAYERS if la[0] == name)
+    kh, kw, _, cout = chip_smoke.layer_weights(fast_model, layer[1]).w.shape
+    plan = _check_f32_plan(kh, kw, layer[2], *layer[3], cout)
+    assert (plan.rows, plan.cg, plan.kg, plan.kc, plan.resident) == FULL_PLANS[name] and not plan.grid_rule
+
+
+# the grid rule's tilings (rows, cg, kg, kc) of RAFT's and GMA's launches at
+# batch 1: the last-wave rule's, but where its 4-warp floor moved a layer off
+# one- and two-warp blocks to 64 channels (every mask2, convc2 at 63x125, the
+# 256-wide layers at 55x128; timed against the old plans in PERF.md)
+GRID_PLANS = {
+    "raft.convc1@45x80": (8, 8, 2, 32),
+    "raft.convc2@45x80": (8, 2, 4, 16),
+    "raft.conv@45x80": (8, 4, 4, 32),
+    "raft.gru.zr1@45x80": (8, 8, 2, 32),
+    "raft.gru.q1@45x80": (8, 4, 4, 64),
+    "raft.gru.zr2@45x80": (8, 8, 2, 32),
+    "raft.gru.q2@45x80": (8, 4, 4, 64),
+    "raft.fh1@45x80": (8, 8, 2, 32),
+    "raft.fh2@45x80": (8, 1, 8, 64),
+    "raft.mask0@45x80": (8, 8, 2, 32),
+    "raft.mask2@45x80": (8, 8, 1, 16),
+    "raft.convc1@63x125": (8, 8, 1, 16),
+    "raft.convc2@63x125": (8, 8, 1, 16),
+    "raft.conv@63x125": (8, 8, 2, 32),
+    "raft.gru.zr1@63x125": (8, 8, 1, 16),
+    "raft.gru.q1@63x125": (8, 8, 2, 32),
+    "raft.gru.zr2@63x125": (8, 8, 1, 16),
+    "raft.gru.q2@63x125": (8, 8, 2, 32),
+    "raft.fh1@63x125": (8, 8, 1, 16),
+    "raft.fh2@63x125": (8, 1, 8, 64),
+    "raft.mask0@63x125": (8, 8, 1, 16),
+    "raft.mask2@63x125": (8, 8, 1, 16),
+    "raft.convc1@47x156": (8, 8, 1, 16),
+    "raft.convc2@47x156": (8, 4, 2, 16),
+    "raft.conv@47x156": (8, 8, 2, 32),
+    "raft.gru.zr1@47x156": (8, 8, 1, 16),
+    "raft.gru.q1@47x156": (8, 8, 2, 32),
+    "raft.gru.zr2@47x156": (8, 8, 1, 16),
+    "raft.gru.q2@47x156": (8, 8, 2, 32),
+    "raft.fh1@47x156": (8, 8, 1, 16),
+    "raft.fh2@47x156": (8, 1, 8, 64),
+    "raft.mask0@47x156": (8, 8, 1, 16),
+    "raft.mask2@47x156": (8, 8, 1, 16),
+    "raft.convc1@55x128": (8, 8, 1, 16),
+    "raft.convc2@55x128": (8, 4, 2, 16),
+    "raft.conv@55x128": (8, 8, 2, 32),
+    "raft.gru.zr1@55x128": (8, 8, 1, 16),
+    "raft.gru.q1@55x128": (8, 8, 2, 32),
+    "raft.gru.zr2@55x128": (8, 8, 1, 16),
+    "raft.gru.q2@55x128": (8, 8, 2, 32),
+    "raft.fh1@55x128": (8, 8, 1, 16),
+    "raft.fh2@55x128": (8, 1, 8, 64),
+    "raft.mask0@55x128": (8, 8, 1, 16),
+    "raft.mask2@55x128": (8, 8, 1, 16),
+    "gma.gru.zr1@55x128": (8, 8, 1, 16),
+    "gma.gru.q1@55x128": (8, 8, 2, 32),
+    "gma.gru.zr2@55x128": (8, 8, 1, 16),
+    "gma.gru.q2@55x128": (8, 8, 2, 32),
+    "gma.to_v@55x128": (8, 8, 2, 32),
+}
+GRID_LAYERS = {f"{la[0]}@{g[0]}x{g[1]}": (la, g) for g in (chip_smoke.RAFT, chip_smoke.SIDECAR, (47, 156), chip_smoke.SINTEL_GRID)
+               for la in chip_smoke.RAFT_K1_LAYERS + (chip_smoke.GMA_K1_LAYERS if g == chip_smoke.SINTEL_GRID else [])}
+
+
+@pytest.mark.parametrize("label", GRID_PLANS)
+def test_f32_plans_at_the_raft_grids(fast_model, label):
+    layer, grid = GRID_LAYERS[label]
+    kh, kw, _, cout = chip_smoke.layer_weights(fast_model, layer[1]).w.shape
+    plan = _check_f32_plan(kh, kw, layer[2], *grid, cout)
+    assert (plan.rows, plan.cg, plan.kg, plan.kc, plan.resident) == (*GRID_PLANS[label], 1) and plan.grid_rule
+
+
+SINTEL = [la for la in chip_smoke.K1_F32_LAYERS if la[3] == chip_smoke.SINTEL_GRID]
+
+
+@pytest.mark.parametrize("layer", SINTEL, ids=[la[0] for la in SINTEL])
+def test_f32_plan_at_the_sintel_grid_meets_the_floor(fast_model, layer):
+    # RAFT's and GMA's launches at 55x128: every block holds 4 warps or
+    # more, and the 256-wide layers take 64 channels a block (the last-wave
+    # rule alone gave them one-warp blocks of 16)
+    kh, kw, _, cout = chip_smoke.layer_weights(fast_model, layer[1]).w.shape
+    plan = _check_f32_plan(kh, kw, layer[2], *layer[3], cout)
+    assert plan.grid_rule and plan.rows == 8 and plan.threads >= F32_MIN_THREADS
+    if cout >= 256:
+        assert plan.cg == 8, plan
+
+
+def test_grid_rule_launches_are_counted(monkeypatch):
+    # launch_k1 counts, where it calls the library, each launch that the
+    # grid rule tiled: not a 1080p-branch launch, not a plan given by hand
+    import zero_tig_torch.ops.fused_conv as fc
+    from zero_tig_torch.core import spans
+
+    records = []
+
+    class Library:  # the kernel library, which this box cannot build
+        def zt_fused_conv(self, record, stream):
+            records.append(record)
+            return 0
+
+    monkeypatch.setattr(fc.build, "library", Library)
+    monkeypatch.setattr(fc.build, "stream_handle", lambda device: 0)
+
+    def launch(b, h, w, parts, taps, cout, plan=None):
+        xs = [torch.zeros(b, h, w, c) for c in parts]
+        cw = conv_weights(torch.zeros(*taps, sum(parts), cout), torch.ones(cout), torch.zeros(cout))
+        fc.launch_k1(xs, cw, plan=plan)
+        return fc.k1_plan(torch.float32, *taps, tuple(parts), h, w, cout, b)
+
+    before = dict(spans.COUNTS)
+    gate = launch(1, 55, 128, (128, 128, 126, 2), (1, 5), 256)  # RAFT's zr1 at Sintel's grid
+    launch(1, 55, 128, (128, 128, 126, 2), (1, 5), 256)
+    head = launch(1, 55, 128, (256,), (3, 3), 2)  # fh2: a head of 2 channels
+    full = launch(2, 200, 528, (48,), (3, 3), 61)  # the 1080p branch
+    assert gate.grid_rule and head.grid_rule and not full.grid_rule
+    assert spans.COUNTS["fused_conv_f32_grid"] - before["fused_conv_f32_grid"] == 3
+    launch(1, 55, 128, (128, 128, 126, 2), (1, 5), 256, plan=fc.fma_plan(
+        1, 5, (128, 128, 126, 2), 55, 128, 256, 1, None, rows=8, cg=2, kg=1, kc=8))
+    assert spans.COUNTS["fused_conv_f32_grid"] - before["fused_conv_f32_grid"] == 3 and len(records) == 5
+    # the wrappers' own counts are theirs: launch_k1 adds to no other entry
+    assert {k: n for k, n in spans.COUNTS.items() if k != "fused_conv_f32_grid"} == \
+        {k: n for k, n in before.items() if k != "fused_conv_f32_grid"}
 
 
 @pytest.mark.parametrize("case", chip_smoke.FMA_CASES, ids=lambda c: f"{c[0]}{c[1]}{c[2]}{c[3]}")

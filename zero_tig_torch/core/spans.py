@@ -39,7 +39,11 @@ Counters. ``COUNTS`` holds the launches of each kernel wrapper since
 ``reset_counts()``, always on: a wrapper adds one where it calls into the
 kernel library, and nowhere else. K1's wrapper counts its two kernels
 apart: ``fused_conv`` the tensor-core kernel (bf16 operands),
-``fused_conv_f32`` the FMA kernel (f32 operands). ``corr_lookup`` counts
+``fused_conv_f32`` the FMA kernel (f32 operands); ``fused_conv_f32_grid``
+counts those FMA launches whose tiling the grid rule of
+``ops/fused_conv.py::_fma_plan`` chose (every f32 launch off the 1080p
+branch: RAFT's and GMA's update grids), at the same dispatch
+(``launch_k1``). ``corr_lookup`` counts
 RAFT's correlation lookups on the card (``models/raft/corr.py::lookup_corr``,
 one an iteration of the inference pass), and ``gma_aggregate`` GMA's
 aggregations (``models/raft/gma.py::aggregate``, one an iteration of its
@@ -70,8 +74,8 @@ import time
 import torch
 from torch.autograd import profiler as _prof
 
-COUNTS = {"fused_conv": 0, "fused_conv_f32": 0, "gru": 0, "equalize_u8": 0, "conv3x3_bf16": 0,
-          "corr_lookup": 0, "gma_aggregate": 0}
+COUNTS = {"fused_conv": 0, "fused_conv_f32": 0, "fused_conv_f32_grid": 0, "gru": 0, "equalize_u8": 0,
+          "conv3x3_bf16": 0, "corr_lookup": 0, "gma_aggregate": 0}
 GRAPHS = {"raft_graph_capture": 0, "raft_graph_replay": 0}
 _SESSION = {"k1.launches": 0, "k1.host_ns": 0, "raft.calls": 0, "raft.graph_replays": 0,
             "flowseq.pairs": 0, "flowseq.warm_starts": 0}

@@ -53,6 +53,7 @@ K1_STAGE_BYTES = 36 * 1024  # a chunk of a streamed conv: 3 stages x 2 blocks fi
 F32_COLS = 16
 F32_THREADS = 256
 F32_STAGES = 2  # chunk buffers of its cp.async double buffer (csrc/fused_conv.cu::kStages)
+F32_MIN_THREADS = 128  # the grid rule's smallest block, 4 warps (_fma_plan)
 # a launch's record as csrc/fused_conv.cuh::Slot lays it out, in 8-byte slots:
 # 28 addresses and integers, lo and hi, and the integers of the kernel's
 # plan: 10 for the tensor-core kernel (Slot), 10 for the FMA kernel (FmaSlot)
@@ -126,7 +127,9 @@ class K1Plan(NamedTuple):
     tiles). "fma": the tile rows (of ``F32_COLS`` columns), the channel
     groups (8 output channels each), the k-groups that split each chunk's
     channels and the blocks of ``F32_THREADS`` threads an SM must hold (1, or 2, which caps the kernel at 128 registers a thread);
-    its grid is (spatial tiles, batch x channel tiles).
+    its grid is (spatial tiles, batch x channel tiles); ``grid_rule``: the
+    tiling is the one ``_fma_plan``'s grid rule chose (``launch_k1`` counts
+    such launches).
     """
 
     kernel: str
@@ -141,6 +144,7 @@ class K1Plan(NamedTuple):
     cg: int = 0
     kg: int = 0
     resident: int = 0
+    grid_rule: bool = False
 
     @property
     def blocks(self) -> int:
@@ -223,13 +227,18 @@ def _fma_plan(kh: int, kw: int, parts: tuple[int, ...], h: int, w: int, cout: in
     up to 16, else of 8; two resident blocks where the tile is 64 channels
     wide, one otherwise; a head of 8 channels or fewer takes them in one
     channel group over 2 k-groups. Otherwise (the RAFT grids, and 1x5 taps,
-    which need every register): 8-row tiles and one resident block; a head
-    of 8 channels or fewer over 8 k-groups; else tiles of 64, 32 or 16
-    channels, whichever leaves the fewest SMs idle in the last wave of
-    blocks (the wider on a tie), and k-groups, a power of two, until the
+    which need every register), the grid rule: 8-row tiles and one resident
+    block; a head of 8 channels or fewer over 8 k-groups; else tiles of 64,
+    32 or 16 channels, whichever leaves the fewest SMs idle in the last wave
+    of blocks (the wider on a tie) among those whose blocks hold
+    ``F32_MIN_THREADS`` or more, and k-groups, a power of two, until the
     blocks hold about 32K threads (256 for each SM); chunks of 16 channels a
     k-group (at most 64), halved until every block of the launch can be
-    resident at once, or at least one."""
+    resident at once, or at least one. The floor keeps a layer off blocks of
+    one or two warps, which stage the whole input tile for 16 or 32 output
+    channels: at Sintel's 55x128 the last-wave rule alone took one-warp
+    blocks of 16 channels (7 waves, the last 0.97 full) over 4-warp blocks
+    of 64 (2 waves, 0.85), which run 1.2-1.6x faster."""
     if kw not in (1, 3, 5):
         raise ValueError(f"K1's f32 kernel takes 1, 3 or 5 taps along a row, not {kh}x{kw}")
     cin = sum(parts)
@@ -249,16 +258,20 @@ def _fma_plan(kh: int, kw: int, parts: tuple[int, ...], h: int, w: int, cout: in
             blocks = tiles * math.ceil(cout / (8 * cg))
             return blocks / (SM_COUNT * math.ceil(blocks / SM_COUNT))
 
-        cg = max((8, 4, 2), key=lambda c: (round(waves_filled(c), 2), c))
-        blocks = tiles * math.ceil(cout / (8 * cg))
-        kg = 2 ** max(0, round(math.log2(32 * 1024 / (blocks * 16 * cg))))
-        kg = min(kg, F32_THREADS // (16 * cg))
+        def k_groups(cg: int) -> int:
+            kg = 2 ** max(0, round(math.log2(32 * 1024 / (tiles * math.ceil(cout / (8 * cg)) * 16 * cg))))
+            return min(kg, F32_THREADS // (16 * cg))
+
+        # 64-channel blocks always hold 4 warps
+        cg = max((c for c in (8, 4, 2) if 16 * c * k_groups(c) >= F32_MIN_THREADS),
+                 key=lambda c: (round(waves_filled(c), 2), c))
+        kg = k_groups(cg)
     # as deep as lets every block of the launch be resident at once
     per_sm = math.ceil(tiles * math.ceil(cout / (8 * cg)) / SM_COUNT)
     kc = min(64, 16 * kg)
     while kc > 4 and _fma_smem(8, cg, kg, kc, kh, kw, cin) * (per_sm if kc > 4 * kg else 1) > SMEM_LIMIT:
         kc //= 2
-    return plan(rows=8, cg=cg, kg=min(kg, kc // 4), kc=kc)
+    return plan(rows=8, cg=cg, kg=min(kg, kc // 4), kc=kc)._replace(grid_rule=True)
 
 
 @functools.lru_cache(maxsize=512)
@@ -441,7 +454,8 @@ def launch_k1(
     their own names. A frame makes over a hundred of these calls, so the
     checks read each tensor's attributes once. While a profiler records,
     the call counts in the session counters ``k1.launches`` and
-    ``k1.host_ns`` (``core/spans.py``)."""
+    ``k1.host_ns`` (``core/spans.py``); an f32 launch that ``_fma_plan``'s
+    grid rule tiled also counts in ``COUNTS["fused_conv_f32_grid"]``."""
     t0 = time.perf_counter_ns() if spans.on() else 0
     x0 = inputs[0]
     dtype, dev = x0.dtype, x0.device
@@ -514,6 +528,8 @@ def launch_k1(
             stream,
         )
     build.check(code, f"fused_conv ({plan.kernel})")
+    if plan.grid_rule:
+        spans.COUNTS["fused_conv_f32_grid"] += 1
     if t0:
         spans.count_k1(time.perf_counter_ns() - t0)
     return out
